@@ -50,21 +50,25 @@ OUT = ROOT / "build" / "smoke"   # ignored by git: the runs' --json files
 # makes ~90 k = 2 and over a hundred k = 3 patterns frequent (PERF.md)
 MICO_SIGMA = 784
 MICO_LAM = 0.0
+# frontier capacity: the largest level of any (k ≤ 3 candidate, root block)
+# of that run finds 111 914 embeddings (scripts/torch_frontier_survey.py),
+# so at 2^17 no level overflows and the answer is exact
+MICO_CAP = 131072
 
 
 def mico_flags(sigma: int) -> list:
     return ["--dataset", "mico", "--scale", "1.0", "--sigma", str(sigma),
             "--lam", str(MICO_LAM), "--metric", "mis", "--execution",
-            "batched", "--max-size", "3"]
+            "batched", "--max-size", "3", "--cap", str(MICO_CAP)]
 GOLDEN_FLAGS = ["--dataset", "gnutella", "--scale", "0.1", "--sigma", "20",
                 "--lam", "0.4", "--max-size", "3", "--execution", "batched",
                 "--metric", "mis"]
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 scalar ops/s —
-# half the 67 TFLOP/s float32 rate, as an SM issues 64 int32 lanes per clock
-# against 128 float32 lanes
+# H100 SXM peaks: HBM bytes/s (NVIDIA data sheet), and int32 instructions/s:
+# 132 SMs × 64 int32 lanes per clock × the 1.98 GHz boost clock (the data
+# sheet's 67 TFLOP/s float32 counts an FMA as two operations, int32 does not)
 HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 33.5e12
+INT32_OPS_S = 132 * 64 * 1.98e9
 INT32_MAX = 2**31 - 1
 
 
@@ -129,6 +133,7 @@ def phase_parity(dev) -> dict:
 
     from repro_torch.core import MatchConfig, Pattern, build_graph
     from repro_torch.core.mis import bitmap_words
+    from repro_torch.data.synthetic import rmat_graph
     from repro_torch.kernels.mis_bitmap.kernel import uses_shared_memory
     from repro_torch.testing.parity import (
         frontier_case, mis_case, patterns_by_k, random_graph,
@@ -154,6 +159,10 @@ def phase_parity(dev) -> dict:
     cd = geometry(gd, cap=1024, chunk=4)         # several chunks per row
     for k, pats in patterns_by_k(gd, 4, per_level=8).items():
         fcase(gd, pats, cd)
+    gs = rmat_graph(3000, 30000, n_labels=2, seed=4)  # skewed degrees
+    for cap in (1000, 16384):                     # partial / many row tiles
+        for k, pats in patterns_by_k(gs, 3, per_level=8).items():
+            fcase(gs, pats, geometry(gs, cap=cap, root_block=1024, chunk=16))
     go = random_graph(200, 6, 1, seed=5)
     for k, pats in patterns_by_k(go, 3).items():  # cap overflow
         fcase(go, pats, geometry(go, cap=64, root_block=128))
@@ -163,7 +172,7 @@ def phase_parity(dev) -> dict:
                        np.zeros(2, np.int32))],
           geometry(ge, cap=64, root_block=32))
     _log("parity: frontier_expand == plain (exact, tolerance 0) on k=2..5, "
-         "multi-chunk, overflow, edgeless, P>1")
+         "multi-chunk, skewed degrees, overflow, edgeless, P>1")
 
     def mcase(*a, **kw):
         worst["mis_bitmap"] = max(worst["mis_bitmap"], mis_case(*a, **kw))
@@ -171,14 +180,12 @@ def phase_parity(dev) -> dict:
     assert uses_shared_memory(bitmap_words(100_000), dev)
     mcase(100_000, 4, 4096, 3, 3, seed=7, device=dev,
           taus=[50, INT32_MAX, 700, 1])          # τ cut mid-table, carry
-    mcase(100_000, 2, 4096, 3, 3, seed=8, device=dev,
-          taus=[INT32_MAX, 300], force_global=True)
     assert uses_shared_memory(bitmap_words(1_000_000), dev)
     mcase(1_000_000, 3, 4096, 3, 3, seed=9, device=dev,
           taus=[INT32_MAX, 100, 2000])           # > 48 KB of shared memory
     assert not uses_shared_memory(bitmap_words(2_000_000), dev)
-    mcase(2_000_000, 2, 4096, 5, 4, seed=10, device=dev,
-          taus=[INT32_MAX, 300])                 # global-memory bitmap
+    mcase(2_000_000, 3, 4096, 5, 4, seed=10, device=dev,
+          taus=[INT32_MAX, 300, 1])              # global-memory bitmap
     _log("parity: mis_bitmap == plain (exact, tolerance 0) on tau cut, carry, "
          "P>1, shared (<48 KB, >48 KB) and global bitmaps")
     return worst
@@ -221,6 +228,11 @@ def phase_main(out: Path, sigma: int) -> dict:
          f"max_memory_allocated={peak} launches={launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {launches}")
+    overflowed = [lvl for lvl, st in res["per_level"].items()
+                  if st["overflowed"]]
+    if overflowed:
+        raise AssertionError(f"levels {overflowed} overflowed the frontier cap "
+                             f"{MICO_CAP}: the answer would not be exact")
     if res["timed_out"] or frequent_k3 == 0:
         raise AssertionError("the full-size run must finish with a frequent "
                              "k = 3 pattern")
@@ -242,11 +254,11 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     from repro_torch.kernels.frontier_expand.ref import frontier_expand_ref
     from repro_torch.kernels.mis_bitmap.kernel import mis_bitmap_select
     from repro_torch.testing.parity import (
-        frontier_case, frontier_live_lanes, max_abs_diff,
+        frontier_case, frontier_work, max_abs_diff, mis_rows_scanned,
     )
 
     g = paper_dataset("mico", scale=1.0)
-    cfg = MatchConfig.for_graph(g, cap=16384, expansion="cuda")
+    cfg = MatchConfig.for_graph(g, cap=MICO_CAP)
     dev_g = DeviceGraph.from_host(g, dev)
     first = int(root_block_order(g, cfg.root_block)[0]) * cfg.root_block
     k2 = initial_candidates(g)
@@ -265,7 +277,7 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     plans = stack_plans([make_plan(p, g) for p in bucket3], dev)
     emb0, cnt0 = _init_roots(dev_g, plans, first, cfg)
     emb1, cnt1, *_ = frontier_expand_ref(dev_g, plans, emb0, cnt0, 1, cfg)
-    lanes = frontier_live_lanes(dev_g, plans, emb1, cnt1, 2, cfg)
+    lanes, bisect_steps = frontier_work(dev_g, plans, emb1, cnt1, 2, cfg)
     fe_ms = _time_ms(lambda: frontier_expand_level(dev_g, plans, emb1, cnt1,
                                                    2, cfg), reps=10)
     fe_plain_ms = _time_ms(lambda: frontier_expand_ref(dev_g, plans, emb1,
@@ -274,7 +286,10 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     graph_bytes = (n + 2 * (n + 1) + 2 * g.n_edges) * 4
     fe_bytes = graph_bytes + 2 * P_ * cap * k * 4 + P_ * (4 + 4 * (5 + 2 * k)) \
         + P_ * (4 + 4 + 1)
-    fe_ops = 8 * lanes
+    # ~8 int32 instructions per live lane (gather, filters, injectivity) and
+    # per step of a bounded bisection (add, shift, clamp, load, compare,
+    # two selects)
+    fe_ops = 8 * lanes + 8 * bisect_steps
     fe_bound = max(fe_bytes / HBM_BYTES_S, fe_ops / INT32_OPS_S) * 1e3
     fe_by = "bytes" if fe_bytes / HBM_BYTES_S >= fe_ops / INT32_OPS_S \
         else "operations"
@@ -296,13 +311,14 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
                                                 k=3), reps=10)
     mis_plain_ms = _time_ms(lambda: mis_greedy_update(bm, cnt, emb, n_valid,
                                                       tau, 3), reps=1)
-    rows = int(n_valid.clamp(max=cap).sum())
+    rows = mis_rows_scanned(emb, n_valid, tau, 3)
     mis_bytes = 2 * P_ * Nw * 4 + rows * 3 * 4 + 5 * P_ * 4
     mis_ops = 4 * 3 * rows
     mis_bound = max(mis_bytes / HBM_BYTES_S, mis_ops / INT32_OPS_S) * 1e3
     mis_by = "bytes" if mis_bytes / HBM_BYTES_S >= mis_ops / INT32_OPS_S \
         else "operations"
     _log(f"kernels: shapes P={P_} cap={cap} k=3 n={n} live_lanes={lanes} "
+         f"bisect_steps={bisect_steps} "
          f"mis_rows={rows}")
     return [
         {"name": "frontier_expand", "route": "cuda",

@@ -1,7 +1,7 @@
 """Where one mining run's time goes, on the card.
 
     PYTHONPATH=src python scripts/torch_profile_mine.py --dataset mico \\
-        --scale 1.0 --sigma 784 --lam 0.0 --max-size 3
+        --scale 1.0 --sigma 784 --lam 0.0 --max-size 3 [--cap 131072]
 
 Runs ``repro_torch.core.mine`` once to warm up (kernel build, CUDA context),
 then once under ``torch.profiler`` (CPU + CUDA activities), and prints:
@@ -40,7 +40,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sigma", type=int, default=784)
     ap.add_argument("--lam", type=float, default=0.0)
     ap.add_argument("--max-size", type=int, default=3)
-    ap.add_argument("--cap", type=int, default=16384)
+    ap.add_argument("--cap", type=int, default=131072,
+                    help="frontier capacity (131072: no level of the mico "
+                         "x1.0 main cell overflows)")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None, help="write the chrome trace here")
     args = ap.parse_args(argv)
@@ -55,7 +57,7 @@ def main(argv=None) -> int:
     cfg = MiningConfig(
         sigma=args.sigma, lam=args.lam, metric="mis", execution="batched",
         max_pattern_size=args.max_size,
-        match=MatchConfig.for_graph(g, cap=args.cap, expansion="cuda"))
+        match=MatchConfig.for_graph(g, cap=args.cap))
     t0 = time.monotonic()
     initial_candidates(g)
     print(f"initial_candidates: {time.monotonic() - t0:.3f} s (host)")

@@ -59,8 +59,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
 
     g = paper_dataset(args.dataset, scale=args.scale)
-    cfg = MatchConfig.for_graph(
-        g, cap=args.cap, expansion="cuda" if dev.type == "cuda" else "torch")
+    cfg = MatchConfig.for_graph(g, cap=args.cap)
     print(f"{args.dataset}×{args.scale}: |V|={g.n} |E|={g.n_edges} "
           f"max degree {g.max_out_degree}; {cfg}")
     dev_g = DeviceGraph.from_host(g, dev)

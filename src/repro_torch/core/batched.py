@@ -357,8 +357,9 @@ def evaluate_level_batched(
       patterns: sequence of `Pattern` (sizes may mix — edge-extension
         generation); taus: same-length int thresholds.
       metric: one of ``("mis", "mis_luby", "mni", "frac")``.
-      cfg: `MatchConfig` — its geometry and ``expansion`` plane apply to
-        every pattern of the level.
+      cfg: `MatchConfig` — its geometry applies to every pattern of the
+        level; ``dev_g``'s device picks the kernels (CUDA) or their plain
+        versions (CPU).
       complete: disable τ early exit (exact metric values).
       deadline: ``time.monotonic()`` cutoff; max_batch: pattern-axis cap.
 

@@ -19,14 +19,15 @@ surfaced, never silently dropped.  The host drives root *blocks* through
 a leading pattern axis P (`plan.stack_plans`), so one call matches a whole
 same-k bucket; P = 1 is the sequential plane.
 
-Two expansion planes implement the level step (``MatchConfig.expansion``):
+The frontier's device picks the level step (`_expand_level`):
 
-  * ``"torch"`` — the plain op pipeline below (`_expand_level`), optionally
-    two-phase (cheap filters → compact → bisect survivors only).
-  * ``"cuda"`` — the hand-written level kernel
+  * a CUDA frontier runs the hand-written level kernel
     (``repro_torch.kernels.frontier_expand``): one launch sequence per level
     for the whole bucket, bit-identical to the single-phase pipeline
-    (survivor order included).
+    (survivor order included);
+  * a CPU frontier runs the plain op pipeline (`_expand_level_torch`),
+    two-phase when ``MatchConfig.two_phase`` is set (cheap filters →
+    compact → bisect survivors only).
 """
 from __future__ import annotations
 
@@ -53,28 +54,15 @@ class MatchConfig:
     bisect_iters: int = 12   # ceil(log2(max_degree + 1))
     # two-phase expansion: run the cheap filters (label/degree/injectivity)
     # on the full (cap × chunk) grid, compact survivors, and run the
-    # edge-existence bisection only on the compacted lanes.  Only
-    # meaningful on the "torch" plane; the kernel is single-phase.
+    # edge-existence bisection only on the compacted lanes.  Read by the CPU
+    # pipeline only; the kernel (CUDA frontiers) is single-phase.  The two
+    # differ only in which rows a level that overflows `cap` keeps, and
+    # such a level is always flagged through `overflowed`.
     two_phase: bool = False
-    # expansion plane: "torch" = per-chunk op pipeline (reference), "cuda" =
-    # the hand-written level kernel, bit-identical to the single-phase
-    # torch pipeline.
-    expansion: str = "torch"
-
-    def __post_init__(self):
-        if self.expansion not in ("torch", "cuda"):
-            raise ValueError('expansion must be "torch" or "cuda"')
-        # two_phase is a torch-plane knob; the kernel is single-phase by
-        # construction.  Normalize so a cuda config never *claims* two-phase
-        # semantics (truncation content under overflow differs between the
-        # two-phase pipeline and the single-phase planes — always flagged via
-        # `overflowed`, but configs should say what they run).
-        if self.expansion == "cuda" and self.two_phase:
-            object.__setattr__(self, "two_phase", False)
 
     @classmethod
     def for_graph(cls, g: DataGraph, *, cap: int = 8192, root_block: int = 4096,
-                  chunk: int = 64, expansion: str = "torch") -> "MatchConfig":
+                  chunk: int = 64) -> "MatchConfig":
         """Right-size the geometry to the graph: the frontier capacity and
         root blocks never usefully exceed the graph scale, and the chunk
         width never usefully exceeds the max degree."""
@@ -89,7 +77,6 @@ class MatchConfig:
             max_chunks=max(1, -(-max_deg // chunk)),
             bisect_iters=max(2, int(np.ceil(np.log2(max_deg + 1))) + 1),
             two_phase=True,
-            expansion=expansion,
         )
 
 
@@ -172,12 +159,21 @@ def _expand_level(g: DeviceGraph, plans: PatternPlan, emb, count, level: int,
     int32 valid rows.  Returns (out_emb (P, cap, k) int32, out_count (P,)
     int32, found (P,) int32, overflowed (P,) bool); survivors are packed in
     (chunk, row, position) order — the order the greedy-mIS metric consumes.
-    Dispatches to the level kernel's wrapper when cfg.expansion == "cuda".
+    A CUDA frontier goes to the level kernel's wrapper, a CPU frontier to
+    the plain pipeline.
     """
-    if cfg.expansion == "cuda":
+    if emb.device.type == "cuda":
         from ..kernels.frontier_expand.ops import frontier_expand_level
 
         return frontier_expand_level(g, plans, emb, count, level, cfg)
+    return _expand_level_torch(g, plans, emb, count, level, cfg,
+                               cfg.two_phase)
+
+
+def _expand_level_torch(g: DeviceGraph, plans: PatternPlan, emb, count,
+                        level: int, cfg: MatchConfig, two_phase: bool):
+    """The plain op pipeline of `_expand_level`, on any device; single-phase
+    it is the level kernel's plain version."""
     P, cap, k = emb.shape
     C, i, n = cfg.chunk, level, g.n
     dev = emb.device
@@ -249,7 +245,7 @@ def _expand_level(g: DeviceGraph, plans: PatternPlan, emb, count, level: int,
             m &= cand != emb[p, r, j]
         p, r, cand, cand_safe = p[m], r[m], cand[m], cand_safe[m]
 
-        if cfg.two_phase and i > 0:
+        if two_phase and i > 0:
             # compact cheap-filter survivors (first `cap` per pattern), bisect
             # only those lanes
             rank1, n_phase1 = rank_in_pattern(p)
@@ -257,7 +253,7 @@ def _expand_level(g: DeviceGraph, plans: PatternPlan, emb, count, level: int,
             p, r, cand = p[keep1], r[keep1], cand_safe[keep1]
             ovf |= n_phase1 > cap  # phase-1 drop: results may be incomplete
         prev_rows = emb[p, r]                                          # (m, k)
-        ok = edge_checks(p, cand if cfg.two_phase and i > 0 else cand_safe,
+        ok = edge_checks(p, cand if two_phase and i > 0 else cand_safe,
                          prev_rows)
         p, cand, rows = p[ok], cand[ok], prev_rows[ok]
         rank, n_new = rank_in_pattern(p)

@@ -5,6 +5,8 @@ Replaces the TPU kernel ``_frontier_kernel`` / ``frontier_expand`` of
 three-pass design (count, exclusive scan, write) that keeps the reference's
 survivor order without relying on in-order grid steps.  The library is
 built on first use (`repro_torch.kernels._build`).
+
+``chunk`` must be at most 64: a row's chunk is one 64-bit survivor mask.
 """
 from __future__ import annotations
 
@@ -16,16 +18,19 @@ from .._build import load_library
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+MAX_CHUNK = 64
 
 
 def _lib():
     lib = load_library("frontier_expand")
-    fn = lib.frontier_expand_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
-        fn.restype = _I
-    return fn
+    if lib.frontier_expand_launch.argtypes is None:
+        lib.frontier_expand_launch.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+            _I, _I, _P, _P, _P, _P, _P, _P]
+        lib.frontier_expand_launch.restype = _I
+        lib.frontier_expand_scratch.argtypes = [_I, _I, _I]
+        lib.frontier_expand_scratch.restype = ctypes.c_longlong
+    return lib
 
 
 def _check(name, t, dtype, shape=None):
@@ -59,23 +64,27 @@ def frontier_expand(labels, out_indptr, out_indices, in_indptr, in_indices,
     _check("plan_rows", plan_rows, torch.int32, (P, 5 + 2 * k))
     if not 0 < level < k:
         raise ValueError(f"level must be in [1, k), got {level} (k={k})")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
     dev = emb.device
     out_emb = torch.full((P, cap, k), -1, dtype=torch.int32, device=dev)
     out_count = torch.empty(P, dtype=torch.int32, device=dev)
     found = torch.empty(P, dtype=torch.int32, device=dev)
     ovf = torch.empty(P, dtype=torch.bool, device=dev)
-    counts = torch.empty(P * max_chunks * cap, dtype=torch.int32, device=dev)
-    fn = _lib()
+    lib = _lib()
+    tile_sums = torch.empty(lib.frontier_expand_scratch(P, cap, max_chunks),
+                            dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(labels.data_ptr(), out_indptr.data_ptr(),
-                 out_indices.data_ptr(), in_indptr.data_ptr(),
-                 in_indices.data_ptr(), n, out_indices.shape[0],
-                 in_indices.shape[0], emb.data_ptr(), count.data_ptr(),
-                 plan_rows.data_ptr(), P, cap, k, level, chunk, max_chunks,
-                 bisect_iters, counts.data_ptr(), out_emb.data_ptr(),
-                 out_count.data_ptr(), found.data_ptr(), ovf.data_ptr(),
-                 stream)
+        err = lib.frontier_expand_launch(
+            labels.data_ptr(), out_indptr.data_ptr(),
+            out_indices.data_ptr(), in_indptr.data_ptr(),
+            in_indices.data_ptr(), n, out_indices.shape[0],
+            in_indices.shape[0], emb.data_ptr(), count.data_ptr(),
+            plan_rows.data_ptr(), P, cap, k, level, chunk, max_chunks,
+            bisect_iters, tile_sums.data_ptr(), out_emb.data_ptr(),
+            out_count.data_ptr(), found.data_ptr(), ovf.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"frontier_expand launch failed: CUDA error {err}")
     frontier_expand.launches += 1

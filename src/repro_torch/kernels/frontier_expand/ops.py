@@ -1,7 +1,7 @@
 """Public wrapper: drop-in replacement for the single-phase level pipeline.
 
-``core/matcher._expand_level`` dispatches here when
-``MatchConfig.expansion == "cuda"``.  A CUDA frontier launches the kernel
+``core/matcher._expand_level`` sends every CUDA frontier here.  A CUDA
+frontier launches the kernel
 (``kernel.py``); a CPU frontier takes the plain version (``ref.py``); any
 other device raises.  There is no fallback from the kernel to the plain
 version.

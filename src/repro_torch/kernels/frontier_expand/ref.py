@@ -1,15 +1,13 @@
 """Plain version of the frontier-expansion kernel = the torch pipeline.
 
-The reference is the single-phase expansion in
-``repro_torch.core.matcher._expand_level`` (``two_phase=False``,
-``expansion="torch"``).  The kernel is bit-identical to it, including the
-(chunk, row, position) survivor order the greedy-mIS metric depends on.
+The reference is the single-phase expansion
+``repro_torch.core.matcher._expand_level_torch`` (``two_phase=False``).  The
+kernel is bit-identical to it, including the (chunk, row, position)
+survivor order the greedy-mIS metric depends on.
 """
 from __future__ import annotations
 
-import dataclasses
-
-from ...core.matcher import MatchConfig, _expand_level
+from ...core.matcher import MatchConfig, _expand_level_torch
 
 
 def frontier_expand_ref(g, plans, emb, count, level: int, cfg: MatchConfig):
@@ -20,7 +18,6 @@ def frontier_expand_ref(g, plans, emb, count, level: int, cfg: MatchConfig):
     flags it per level, so the ref does too (``match_block`` ORs the same
     check back in, so its results are identical either way).
     """
-    cfg = dataclasses.replace(cfg, expansion="torch", two_phase=False)
-    out_emb, out_count, found, ovf = _expand_level(g, plans, emb, count,
-                                                   level, cfg)
+    out_emb, out_count, found, ovf = _expand_level_torch(
+        g, plans, emb, count, level, cfg, two_phase=False)
     return out_emb, out_count, found, ovf | (found > cfg.cap)

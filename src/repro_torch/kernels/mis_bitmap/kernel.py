@@ -37,13 +37,9 @@ def uses_shared_memory(n_words: int, device) -> bool:
     return n_words * 4 <= smem_limit_bytes(device)
 
 
-def mis_bitmap_select(bitmap, count, emb, n_valid, tau, *, k: int,
-                      force_global: bool = False):
+def mis_bitmap_select(bitmap, count, emb, n_valid, tau, *, k: int):
     """bitmap (P, Nw) int32 words; count/n_valid/tau (P,) int32; emb
     (P, cap, K≥k) int32.  Returns new (bitmap, count); inputs are untouched.
-
-    ``force_global`` keeps the bitmap in global memory even where it would
-    fit in shared memory (to exercise that branch on small graphs).
     """
     P, cap, K = emb.shape
     Nw = bitmap.shape[1]
@@ -58,7 +54,7 @@ def mis_bitmap_select(bitmap, count, emb, n_valid, tau, *, k: int,
     if not 1 <= k <= min(K, 16):
         raise ValueError(f"k must be in [1, min(K, 16)], got k={k}, K={K}")
     dev = emb.device
-    use_smem = (not force_global) and uses_shared_memory(Nw, dev)
+    use_smem = uses_shared_memory(Nw, dev)
     bm_out = bitmap.clone()
     cnt_out = count.clone()
     lib = _lib()

@@ -9,7 +9,7 @@ counts, searched patterns, memory, time).  Runs on the card by default
 (``--device cuda``), where every expansion level and every greedy-mIS update
 is a hand-written CUDA kernel; ``--device cpu`` runs the plain torch
 versions instead (the torch expansion pipeline, two-phase as
-``MatchConfig.for_graph`` sets it).  ``--json`` writes the reference
+``MatchConfig.for_graph`` sets it).  The device alone picks the path.  ``--json`` writes the reference
 launcher's schema.
 """
 from __future__ import annotations
@@ -100,7 +100,6 @@ def main(argv=None) -> int:
     print(f"[mine] {args.dataset}×{args.scale}: |V|={g.n} |E|={g.n_edges} "
           f"labels={g.n_labels} (load {time.monotonic() - t0:.1f}s)")
 
-    expansion = "cuda" if device.type == "cuda" else "torch"
     cfg = MiningConfig(
         sigma=args.sigma, lam=args.lam, metric=args.metric,
         generation=args.generation, max_pattern_size=args.max_size,
@@ -109,7 +108,7 @@ def main(argv=None) -> int:
         sample_fraction=args.sample_fraction, confidence=args.confidence,
         sample_seed=args.sample_seed, sample_rounds=args.sample_rounds,
         match=dataclasses.replace(
-            MatchConfig.for_graph(g, cap=args.cap, expansion=expansion),
+            MatchConfig.for_graph(g, cap=args.cap),
             **({"root_block": args.root_block}
                if args.root_block is not None else {})),
     )

@@ -60,7 +60,7 @@ def _cfgs(jg, two_phase, cap=256, root_block=128, chunk=64):
         two_phase=two_phase)
     tc = TMatchConfig(cap=jc.cap, root_block=jc.root_block, chunk=jc.chunk,
                       max_chunks=jc.max_chunks, bisect_iters=jc.bisect_iters,
-                      two_phase=two_phase, expansion="torch")
+                      two_phase=two_phase)
     return jc, tc
 
 
@@ -192,8 +192,7 @@ def test_plain_frontier_equals_reference_ref(seed):
             jdev, jp, jbase, jcount, tdev, tplans, tbase, tcount = \
                 _last_level_inputs(jg, tg, pat, jc, tc)
             want = _j_fe_ref_jit(jdev, jp, jbase, jcount, k - 1, jc)
-            got = frontier_expand_level(tdev, tplans, tbase, tcount, k - 1,
-                                        dataclasses.replace(tc, expansion="cuda"))
+            got = frontier_expand_level(tdev, tplans, tbase, tcount, k - 1, tc)
             also = frontier_expand_ref(tdev, tplans, tbase, tcount, k - 1, tc)
             for a, b, c in zip(want, got, also):
                 np.testing.assert_array_equal(np.asarray(a), b[0].numpy())

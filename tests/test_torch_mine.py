@@ -49,7 +49,7 @@ def _one_thread():
 def _t_match(jc):
     return TMatchConfig(cap=jc.cap, root_block=jc.root_block, chunk=jc.chunk,
                         max_chunks=jc.max_chunks, bisect_iters=jc.bisect_iters,
-                        two_phase=jc.two_phase, expansion="torch")
+                        two_phase=jc.two_phase)
 
 
 def _configs(g, metric, execution):
