@@ -5,25 +5,38 @@
 Phases (any failure raises, and the script exits non-zero without its last
 line):
 
-  1. build   — compile both CUDA kernels from ``src/repro_torch/csrc`` (one
-               nvcc per source, in parallel) and print the build time;
+  1. build   — compile the three CUDA kernels from ``src/repro_torch/csrc``
+               (one nvcc per source, in parallel), print the build time and
+               the ptxas reports;
   2. card    — print ``nvidia-smi --query-gpu=name,power.limit``;
-  3. parity  — each kernel against its plain torch version on the card,
-               integers compared exactly: frontier expansion at k = 2..5,
-               an edgeless graph, cap overflow and a stacked P > 1 bucket;
-               greedy mIS with τ cut mid-table, state carried across calls,
-               P > 1, a shared-memory bitmap and a global-memory one
-               (n > 1.8 M);
-  4. golden  — the port's CLI on cuda for gnutella ×0.1, σ = 20, mis,
+  3. parity  — each kernel against its plain torch version on the card:
+               mining kernels compared exactly (frontier expansion at
+               k = 2..5, an edgeless graph, cap overflow and a stacked P > 1
+               bucket; greedy mIS with τ cut mid-table, state carried across
+               calls, P > 1, a shared-memory bitmap and a global-memory one
+               (n > 1.8 M)); flash attention on the reference's kernel-test
+               cases, the qwen3-1.7b shape, hd 128 window + softcap,
+               non-causal and ragged S, within `FLASH_TOL` (bf16 2e-2,
+               f32 1e-5), each case's max abs error printed;
+  4. golden  — the port's mining CLI on cuda for gnutella ×0.1, σ = 20, mis,
                batched, equal to the reference CLI's committed --json;
-  5. main    — the port's CLI on cuda at paper size (mico ×1.0: 100 000
-               vertices, 1 080 298 edges, 29 labels), mis, batched,
-               max size 3; launch counts are zeroed just before and read
-               just after;
-  6. kernels — kernel vs plain version again on real blocks of the mico
-               graph at the main path's shapes, with times (CUDA events),
-               the bound and the launch counts of phase 5, as one JSON line;
-  7. the last line: {"ok": true, "device": {...}}.
+  5. main    — the mining CLI on cuda at paper size (mico ×1.0: 100 000
+               vertices, 1 080 298 edges, 29 labels), mis, batched, max
+               size 3; launch counts are zeroed just before and read just
+               after;
+  6. serve   — the serving CLI on cuda: qwen3-1.7b at full width and depth
+               (28 layers, random weights from seed 0), batch 4, a 1 024-token
+               prompt, 32 new tokens; launch counts zeroed just before and
+               read just after; fails unless every prefill launched the
+               flash kernel once per layer, the logits are finite and the
+               prompt replay's last logits equal the prefill's within
+               0.02·max|logit| + 0.05 (``launch/serve.py`` says why);
+  7. kernels — mining kernels vs plain versions again on real blocks of the
+               mico graph at the main path's shapes, and the flash kernel at
+               the serve phase's per-layer shape, with times (CUDA events),
+               bounds, the library call's time and the launch counts of
+               phases 5 and 6, as one JSON line;
+  8. the last line: {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
 nothing of the JAX package ``repro``.
@@ -64,10 +77,16 @@ GOLDEN_FLAGS = ["--dataset", "gnutella", "--scale", "0.1", "--sigma", "20",
                 "--lam", "0.4", "--max-size", "3", "--execution", "batched",
                 "--metric", "mis"]
 
-# H100 SXM peaks: HBM bytes/s (NVIDIA data sheet), and int32 instructions/s:
-# 132 SMs × 64 int32 lanes per clock × the 1.98 GHz boost clock (the data
-# sheet's 67 TFLOP/s float32 counts an FMA as two operations, int32 does not)
+# the serving phase (6): full width and depth, random weights
+SERVE_FLAGS = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "1024",
+               "--gen-len", "32", "--seed", "0"]
+
+# H100 SXM peaks: HBM bytes/s and dense bf16 tensor-core FLOP/s (NVIDIA data
+# sheet), and int32 instructions/s: 132 SMs × 64 int32 lanes per clock × the
+# 1.98 GHz boost clock (the data sheet's 67 TFLOP/s float32 counts an FMA as
+# two operations, int32 does not)
 HBM_BYTES_S = 3.35e12
+BF16_FLOPS_S = 989e12
 INT32_OPS_S = 132 * 64 * 1.98e9
 INT32_MAX = 2**31 - 1
 
@@ -112,7 +131,8 @@ def phase_build():
 
     t0 = time.monotonic()
     _build.build_all()
-    _log(f"build: both kernels in {time.monotonic() - t0:.1f} s")
+    _log(f"build: {len(_build.SOURCES)} kernels in "
+         f"{time.monotonic() - t0:.1f} s")
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name).splitlines():
             if "Used" in line:
@@ -202,19 +222,47 @@ def phase_golden(out: Path):
          f"(n_frequent={got['n_frequent']}, searched={got['searched']})")
 
 
-def phase_main(out: Path, sigma: int) -> dict:
+def _counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.frontier_expand.kernel import frontier_expand
     from repro_torch.kernels.mis_bitmap.kernel import mis_bitmap_select
 
+    return {"frontier_expand": frontier_expand,
+            "mis_bitmap": mis_bitmap_select,
+            "flash_attention": flash_attention_bhsd}
+
+
+def _zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def phase_flash_parity(dev) -> float:
+    from repro_torch.testing.parity import FLASH_CASES, FLASH_TOL, flash_case
+
+    worst = 0.0
+    for case in FLASH_CASES:
+        err = flash_case(case, dev)
+        worst = max(worst, err)
+        _log(f"parity: flash_attention {case[0]} max_abs_err={err:.3g} "
+             f"(tolerance {FLASH_TOL[case[6]]})")
+    return worst
+
+
+def phase_main(out: Path, sigma: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
-    frontier_expand.launches = 0
-    mis_bitmap_select.launches = 0
+    _zero_counts()
     t0 = time.monotonic()
     res = _run_cli(mico_flags(sigma), out / "smoke_mico.json")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"frontier_expand": frontier_expand.launches,
-                "mis_bitmap": mis_bitmap_select.launches}
+    counts = _read_counts()
+    launches = {k: counts[k] for k in ("frontier_expand", "mis_bitmap")}
     peak = torch.cuda.max_memory_allocated()
     for lvl, st in res["per_level"].items():
         _log(f"main: level {lvl} wall_s={st['wall_s']:.3f} "
@@ -237,6 +285,109 @@ def phase_main(out: Path, sigma: int) -> dict:
         raise AssertionError("the full-size run must finish with a frequent "
                              "k = 3 pattern")
     return launches
+
+
+def phase_serve(out: Path) -> int:
+    """qwen3-1.7b served at full width through the serving CLI; returns the
+    flash kernel's launches in that run."""
+    from repro_torch.configs.lm import model_flops
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve as cli
+
+    cfg = get_arch("qwen3-1.7b").cfg
+    path = out / "smoke_serve.json"
+    _zero_counts()
+    t0 = time.monotonic()
+    rc = cli.main(SERVE_FLAGS + ["--device", "cuda", "--json", str(path)])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = _read_counts()
+    if rc != 0:
+        raise RuntimeError(f"serve CLI exited {rc}")
+    res = json.loads(path.read_text())
+    B, P = res["batch"], res["prompt_len"]
+    flops = model_flops(cfg, "prefill", B, P)
+    _log(f"serve: {res['config']} ({res['n_params']} parameters) batch {B} "
+         f"prompt {P} gen {res['gen_len']}: wall_s={wall:.2f} "
+         f"ttft_s={res['ttft_s']:.4f} "
+         f"prefill_tflops={flops / res['ttft_s'] / 1e12:.1f} "
+         f"(model_flops {flops:.4g}, "
+         f"{flops / res['ttft_s'] / BF16_FLOPS_S:.3f} of the 989 TFLOP/s "
+         f"bf16 dense peak) replay_s={res['replay_s']:.2f} "
+         f"({res['replay_s'] / P * 1e3:.2f} ms/step) "
+         f"decode_step_ms median={res['decode_step_ms_median']:.3f} "
+         f"p90={res['decode_step_ms_p90']:.3f} "
+         f"decode_tokens_per_s={res['decode_tokens_per_s']:.1f} "
+         f"max_memory_allocated={res['max_memory_allocated']} "
+         f"launches={counts}")
+    _log(f"serve: prompt gap max_abs={res['prompt_gap']:.4g} against the "
+         f"bound {cli.GAP_SCALE}·max|logit| + {cli.GAP_FLOOR} = "
+         f"{res['prompt_gap_bound']:.4g}; elementwise "
+         f"|gap| / ({cli.GAP_ATOL} + {cli.GAP_RTOL}·|logit|) at most "
+         f"{res['prompt_allclose_ratio']:.4g}; first tokens "
+         f"{res['tokens'][0][:8]}")
+    prefills = 1 + 1   # the untimed warm-up prefill and the timed one
+    if res["prefill_flash_launches"] != cfg.n_layers or \
+            counts["flash_attention"] != prefills * cfg.n_layers:
+        raise AssertionError(
+            f"a prefill must launch the flash kernel once per layer "
+            f"({cfg.n_layers}): timed prefill {res['prefill_flash_launches']}, "
+            f"run {counts['flash_attention']} over {prefills} prefills")
+    if not res["logits_finite"]:
+        raise AssertionError("non-finite logits in the serve run")
+    if not res["prompt_gap_ok"]:
+        raise AssertionError(
+            f"prompt replay's last logits differ from the prefill's by "
+            f"{res['prompt_gap']}, past {res['prompt_gap_bound']}")
+    return counts["flash_attention"]
+
+
+def phase_flash_kernel(dev) -> dict:
+    """The flash kernel at the serve phase's per-layer shape: kernel vs
+    plain version, timed beside its bound and the library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.testing.parity import FLASH_TOL, flash_inputs
+
+    cfg = get_arch("qwen3-1.7b").cfg
+    B, S = 4, 1024
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, dev, seed=1)
+    # the kernel's own layout, as ops.flash_attention hands it over
+    qf = q.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
+    got = flash_attention_bhsd(qf, kf, vf, causal=True)
+    got = got.reshape(B, H, S, hd).transpose(1, 2).float()
+    want = flash_attention_ref(q, k, v, causal=True).float()
+    err = float((got - want).abs().max())
+    tol = FLASH_TOL[torch.bfloat16]
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"flash_attention at the serve shape: max abs "
+                             f"err {err} past atol = rtol = {tol}")
+    ms = _time_ms(lambda: flash_attention_bhsd(qf, kf, vf, causal=True),
+                  reps=20)
+    plain_ms = _time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                        reps=5)
+    q4, k4, v4 = (t.view(B, -1, S, hd) for t in (qf, kf, vf))
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), reps=20)
+    # causal-live work: S(S+1)/2 (query, key) pairs per head, 2·hd FLOPs
+    # each for q·k and for p·v; bytes: q, k, v and o once, bf16
+    flops = 4.0 * hd * B * H * S * (S + 1) / 2
+    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+    t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
+    _log(f"kernels: flash_attention B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
+         f"causal: ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+         f"plain_ms={plain_ms:.3f} sdpa_ms={library_ms:.4f} "
+         f"bound_ms={max(t_ops, t_bytes) * 1e3:.4f} max_abs_err={err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err}
 
 
 def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
@@ -355,10 +506,22 @@ def main(argv=None) -> int:
     phase_build()
     phase_card()
     worst = phase_parity(dev)
+    worst_flash = phase_flash_parity(dev)
     OUT.mkdir(parents=True, exist_ok=True)
     phase_golden(OUT)
     launches = phase_main(OUT, args.mico_sigma)
+    flash_launches = phase_serve(OUT)
     kernels = phase_kernels(dev, launches, worst, args.mico_sigma)
+    flash = phase_flash_kernel(dev)
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+        "launches": flash_launches,
+        "max_abs_err": max(worst_flash, flash["max_abs_err"]),
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

@@ -10,19 +10,26 @@ compares the port's outputs through them, one function per state type:
   * mIS bitmaps — `bitmap_from_uint32` / `bitmap_to_uint32`: the
     reference's ``(⌈n/32⌉,)`` uint32 words ↔ the port's int32 words, the
     same bits;
-  * MNI / frac tables — `table_from_numpy` / `table_to_numpy`.
+  * MNI / frac tables — `table_from_numpy` / `table_to_numpy`;
+  * transformer weights — `transformer_params_from_numpy` builds the port's
+    model from the reference's parameter pytree, and
+    `transformer_config_from` its config from the reference's.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .core.graph import DataGraph
 from .core.plan import _TENSOR_FIELDS, PatternPlan, plan_from_numpy
+from .models.transformer import Transformer, TransformerConfig
 
 __all__ = ["data_graph_from_arrays", "plan_from_numpy", "plan_from_fields",
            "bitmap_from_uint32", "bitmap_to_uint32", "table_from_numpy",
-           "table_to_numpy"]
+           "table_to_numpy", "transformer_config_from",
+           "transformer_params_from_numpy"]
 
 
 def data_graph_from_arrays(g) -> DataGraph:
@@ -64,3 +71,54 @@ def table_from_numpy(a, device="cpu") -> torch.Tensor:
 
 def table_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def transformer_config_from(cfg) -> TransformerConfig:
+    """The port's `TransformerConfig` with the fields of ``cfg`` (any object
+    with the reference's fields; ``use_flash`` is dropped, ``dtype`` is
+    mapped by name)."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(TransformerConfig)
+              if f.name != "dtype" and hasattr(cfg, f.name)}
+    return TransformerConfig(**fields,
+                             dtype=getattr(torch, np.dtype(cfg.dtype).name))
+
+
+def transformer_params_from_numpy(tree, cfg: TransformerConfig,
+                                  device="cpu") -> Transformer:
+    """The port's model holding the reference's parameters.
+
+    ``tree`` is the reference's ``transformer_init`` pytree with numpy
+    leaves.  The leading scan axis is unstacked into one block per layer,
+    ``(local, global)`` pairs into consecutive layers; each dense kernel
+    (in, out) becomes the port's ``weight`` (out, in), rounded to bf16 as
+    every use rounds it; norm scales stay f32, the embedding takes
+    ``cfg.dtype``.
+    """
+    model = Transformer(cfg, device=device)
+
+    def put(param, a, transpose=False):
+        a = np.array(a, np.float32)
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(a.T.copy() if transpose else a))
+
+    put(model.embed, tree["embed"]["table"])
+    put(model.ln_final.scale, tree["ln_final"]["scale"])
+    for i, blk in enumerate(model.layers):
+        if cfg.local_global:
+            p = tree["layers"]["local" if i % 2 == 0 else "global"]
+            step = i // 2
+        else:
+            p, step = tree["layers"], i
+        put(blk.ln_attn.scale, p["ln_attn"]["scale"][step])
+        put(blk.ln_ffn.scale, p["ln_ffn"]["scale"][step])
+        for name in ("wq", "wk", "wv", "wo"):
+            put(getattr(blk.attn, name).weight, p["attn"][name]["kernel"][step],
+                transpose=True)
+        if cfg.qk_norm:
+            put(blk.attn.q_norm.scale, p["attn"]["q_norm"]["scale"][step])
+            put(blk.attn.k_norm.scale, p["attn"]["k_norm"]["scale"][step])
+        for name in ("wi", "wg", "wo"):
+            put(getattr(blk.ffn, name).weight, p["ffn"][name]["kernel"][step],
+                transpose=True)
+    return model

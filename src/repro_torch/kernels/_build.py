@@ -27,6 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
     "frontier_expand": CSRC / "frontier_expand.cu",
     "mis_bitmap": CSRC / "mis_bitmap.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

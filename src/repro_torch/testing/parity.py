@@ -1,10 +1,11 @@
 """Kernel-vs-plain parity cases, shared by the card tests and ``chip_smoke.py``.
 
 Every case is built from a numpy seed, runs the CUDA kernel and its plain
-torch version on the same device tensors, and compares every output
-exactly (the kernels compute integers and bits, so the tolerance is zero).
-Each ``*_case`` function returns the largest absolute difference it saw
-(0 when they agree) and raises ``AssertionError`` on any mismatch.
+torch version on the same device tensors, and compares every output.  The
+mining kernels compute integers and bits, so their tolerance is zero; the
+flash-attention kernel is held to `FLASH_TOL` (the reference's own kernel
+tests' tolerances).  Each ``*_case`` function returns the largest absolute
+difference it saw and raises ``AssertionError`` on any mismatch.
 """
 from __future__ import annotations
 
@@ -20,12 +21,15 @@ from ..core.matcher import MatchConfig, _init_roots, edge_exists
 from ..core.mis import bitmap_words, mis_greedy_update
 from ..core.pattern import Pattern
 from ..core.plan import make_plan, stack_plans
+from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ref import flash_attention_ref
 from ..kernels.frontier_expand.ops import frontier_expand_level
 from ..kernels.frontier_expand.ref import frontier_expand_ref
 from ..kernels.mis_bitmap.kernel import mis_bitmap_select
 
 __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
-           "max_abs_diff", "frontier_work", "mis_rows_scanned"]
+           "max_abs_diff", "frontier_work", "mis_rows_scanned",
+           "FLASH_CASES", "FLASH_TOL", "flash_inputs", "flash_case"]
 
 
 def random_graph(n: int, deg: int, n_labels: int, seed: int,
@@ -180,3 +184,51 @@ def mis_rows_scanned(emb, n_valid, tau, k: int) -> int:
             r += 1
         total += r
     return total
+
+
+# flash attention: (name, B, S, H, KV, hd, dtype, causal, window, softcap).
+# The reference's kernel-test cases (tests/kernels/test_kernels.py), the
+# serving path's qwen3-1.7b shape, a windowed and soft-capped hd 128 case,
+# a non-causal one and ragged sequence lengths (not a multiple of 64).
+_F32, _BF16 = torch.float32, torch.bfloat16
+FLASH_CASES = [
+    *[(f"B{B}-S{S}-H{H}-KV{KV}-hd{hd}-{str(dt)[6:]}", B, S, H, KV, hd, dt,
+       True, None, None)
+      for B, S, H, KV, hd in ((1, 64, 2, 2, 16), (2, 128, 4, 2, 32),
+                              (1, 256, 8, 4, 16), (2, 64, 4, 1, 64))
+      for dt in (_F32, _BF16)],
+    *[(f"window{w}-softcap{c}", 2, 128, 4, 2, 32, _F32, True, w, c)
+      for w in (16, 64) for c in (None, 30.0)],
+    ("qwen3-1.7b", 1, 1024, 16, 8, 128, _BF16, True, None, None),
+    ("window512-softcap50", 1, 2048, 16, 8, 128, _BF16, True, 512, 50.0),
+    ("non-causal", 2, 192, 4, 2, 64, _F32, False, None, None),
+    ("ragged", 2, 1000, 4, 2, 64, _F32, True, None, None),
+    ("ragged-window-softcap", 1, 100, 2, 1, 16, _BF16, True, 16, 30.0),
+]
+# bf16: the output's own rounding; f32: summation order
+FLASH_TOL = {_F32: 1e-5, _BF16: 2e-2}
+
+
+def flash_inputs(B, S, H, KV, hd, dtype, device, seed=0):
+    """q (B, S, H, hd), k / v (B, S, KV, hd): N(0, 1) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+                 .to(device=device, dtype=dtype)
+                 for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def flash_case(case, device, seed=0) -> float:
+    """`flash_attention` against its plain version on ``device``; returns
+    the largest absolute difference, raises past `FLASH_TOL`."""
+    name, B, S, H, KV, hd, dtype, causal, window, softcap = case
+    q, k, v = flash_inputs(B, S, H, KV, hd, dtype, device, seed)
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=softcap).float()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap).float()
+    tol = FLASH_TOL[dtype]
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"flash_attention {name}: max abs err {err} "
+                             f"past atol = rtol = {tol}")
+    return err

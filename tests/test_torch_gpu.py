@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card,
+and the serving path on the card against the same run on the CPU.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for a device and skips
 where ``torch.cuda.is_available()`` is false.  On the card run them with
@@ -6,6 +7,7 @@ where ``torch.cuda.is_available()`` is false.  On the card run them with
 shared conftest imports JAX, which the card's machine does not have; this
 file needs neither JAX nor ``repro``).
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -19,8 +21,13 @@ from repro_torch.kernels.frontier_expand.kernel import frontier_expand
 from repro_torch.kernels.mis_bitmap.kernel import (
     mis_bitmap_select, uses_shared_memory,
 )
+from repro_torch.configs.qwen3_1_7b import REDUCED as QWEN3_REDUCED
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro_torch.launch import serve as t_serve
+from repro_torch.models.transformer import transformer_apply, transformer_init
 from repro_torch.testing.parity import (
-    frontier_case, mis_case, patterns_by_k, random_graph,
+    FLASH_CASES, flash_case, frontier_case, mis_case, patterns_by_k,
+    random_graph,
 )
 
 pytestmark = pytest.mark.gpu
@@ -144,3 +151,52 @@ def test_mine_defaults_launch_both_kernels(cuda, execution):
     assert r.frequent
     assert frontier_expand.launches > 0
     assert mis_bitmap_select.launches > 0
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_matches_plain(cuda, case):
+    # reference test shapes × {f32, bf16}, MQA, window × softcap, the
+    # serving shape, hd 128 window + softcap, non-causal, ragged S
+    flash_case(case, cuda)
+
+
+def test_flash_attention_unsupported_head_dim_raises(cuda):
+    q = torch.zeros(2, 64, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bhsd(q, q, q)
+
+
+def test_cuda_prefill_launches_flash_once_per_layer(cuda):
+    cfg = QWEN3_REDUCED
+    model = transformer_init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    toks = t_serve.make_prompts(cfg.vocab, 2, 40, seed=0, device=cuda)
+    before = flash_attention_bhsd.launches
+    logits, _ = transformer_apply(model, toks)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches - before == cfg.n_layers
+    assert torch.isfinite(logits.float()).all()
+
+
+def test_reduced_serve_cuda_matches_cpu(cuda):
+    cfg = QWEN3_REDUCED
+    cpu_model = transformer_init(cfg, torch.Generator().manual_seed(0))
+    cuda_model = copy.deepcopy(cpu_model).to(cuda)
+    prompts = t_serve.make_prompts(cfg.vocab, 4, 64, seed=0, device="cpu")
+    want, _ = transformer_apply(cpu_model, prompts)
+    got, _ = transformer_apply(cuda_model, prompts.to(cuda))
+    got, want = got.float().cpu(), want.float()
+    # flash (f32 scores) on the card, dense (bf16 scores) on the CPU: the
+    # reference's bound for two bf16 runs that round differently
+    assert (got - want).abs().max() <= 0.02 * want.abs().max() + 0.05
+    res_cpu = t_serve.serve(cpu_model, prompts, 8)
+    res_cuda = t_serve.serve(cuda_model, prompts.to(cuda), 8)
+    for res in (res_cpu, res_cuda):
+        assert res["logits_finite"]
+        assert res["prompt_gap_ok"], (res["prompt_gap"], res["prompt_gap_bound"])
+    # on the CPU prefill and decode round alike: the reference's own
+    # elementwise decode-vs-forward tolerance holds
+    assert res_cpu["prompt_allclose_ratio"] <= 1.0
+    assert res_cuda["prefill_flash_launches"] == cfg.n_layers
+    assert res_cuda["max_memory_allocated"] > 0
+    assert res_cuda["tokens"][0][0] == got[0, -1].argmax().item()
