@@ -2,18 +2,24 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen3-1.7b] \\
         [--reduced] [--batch 4] [--prompt-len 1024] [--gen-len 32] \\
-        [--seed 0] [--device cuda|cpu] [--json out.json]
+        [--replay-len N] [--seed 0] [--device cuda|cpu] [--json out.json]
 
 The port's counterpart of ``examples/serve_lm.py``, in the same order:
 
-  1. prefill the prompts with `transformer_apply` and take the
-     last-position logits (time to first token);
-  2. replay the prompt into a fresh KV cache through `transformer_decode`,
-     one token at a time, and compare the replay's last logits with the
-     prefill's: on the card that holds the flash-attention kernel's path
-     against the plain decode path (the reference's
-     ``test_decode_matches_forward`` property; tolerances below);
-  3. decode ``--gen-len`` tokens greedily, timing every step.
+  1. prefill the prompts with `transformer_apply`, which also fills the KV
+     cache, and take the last-position logits (time to first token);
+  2. replay the first ``--replay-len`` prompt tokens (default: all) into a
+     fresh cache through `transformer_decode`, one token at a time, and
+     compare the replay's last logits with the prefill's at that position:
+     on the card that holds the flash-attention kernel's path against the
+     plain decode path (the reference's ``test_decode_matches_forward``
+     property; tolerances below);
+  3. decode ``--gen-len`` tokens greedily from the prefill's cache, timing
+     every step.
+
+The example fills the cache by the replay itself; here the prefill fills
+it, as a server does, so the replay is only a check and may be shorter
+than the prompt (an eager decode step costs the same at any position).
 
 Weights are random, drawn from ``--seed`` with a generator on the run's
 device (``transformer_init``); the prompts are drawn from the same seed with
@@ -27,6 +33,7 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,7 +50,7 @@ from repro_torch.models.transformer import (
     transformer_init,
 )
 
-# The prompt replay's last logits against the prefill's.  The reference
+# The prompt replay's last logits against the prefill's at that position.  The reference
 # holds decode to its dense forward elementwise (atol 0.15, rtol 0.1,
 # tests/models/test_transformer.py::test_decode_matches_forward): there both
 # sides round scores and probabilities to bf16 alike.  On the card the
@@ -75,49 +82,55 @@ def _positions(batch: int, pos: int, dev) -> torch.Tensor:
 
 
 def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
-          warmup: int = 1) -> dict:
+          replay_len: Optional[int] = None, warmup: int = 1) -> dict:
     """Prefill, replay and greedy decode of ``prompts`` (B, P); returns the
     measurements and the generated ids (see the module docstring)."""
     cfg = model.cfg
     dev = prompts.device
     B, P = prompts.shape
-    if B < 1 or P < 1 or gen_len < 1:
-        raise ValueError(f"need batch, prompt length and gen_len >= 1, got "
-                         f"{B}, {P}, {gen_len}")
+    R = P if replay_len is None else replay_len
+    if B < 1 or P < 1 or gen_len < 1 or not 1 <= R <= P:
+        raise ValueError(f"need batch, prompt length and gen_len >= 1 and "
+                         f"1 <= replay_len <= prompt length, got {B}, {P}, "
+                         f"{gen_len}, {R}")
     max_seq = P + gen_len
     for _ in range(warmup):
-        transformer_apply(model, prompts)
-        transformer_decode(model, init_decode_cache(cfg, B, 1, device=dev),
-                           prompts[:, :1], _positions(B, 0, dev))
+        warm = init_decode_cache(cfg, B, max_seq, device=dev)
+        transformer_apply(model, prompts, warm)
+        transformer_decode(model, warm, prompts[:, :1], _positions(B, P, dev))
+        del warm
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
-    # 1. prefill → first token
+    # 1. prefill (fills the cache) → first token
+    cache = init_decode_cache(cfg, B, max_seq, device=dev)
     launches0 = flash_attention_bhsd.launches
     t0 = time.perf_counter()
-    logits, _ = transformer_apply(model, prompts)
+    logits, _ = transformer_apply(model, prompts, cache)
     last = logits[:, -1].float()
+    at_replay = logits[:, R - 1].float()
     del logits
     next_tok = last.argmax(-1)
     _sync(dev)
     ttft = time.perf_counter() - t0
     prefill_launches = flash_attention_bhsd.launches - launches0
 
-    # 2. replay the prompt into the cache
-    cache = init_decode_cache(cfg, B, max_seq, device=dev)
+    # 2. replay R prompt tokens into a fresh cache, against the prefill
+    replay_cache = init_decode_cache(cfg, B, R, device=dev)
     t0 = time.perf_counter()
-    for i in range(P):
-        replay, cache = transformer_decode(model, cache, prompts[:, i:i + 1],
-                                           _positions(B, i, dev))
+    for i in range(R):
+        replay, replay_cache = transformer_decode(
+            model, replay_cache, prompts[:, i:i + 1], _positions(B, i, dev))
     _sync(dev)
     replay_s = time.perf_counter() - t0
+    del replay_cache
     replay = replay[:, 0].float()
-    diff = (replay - last).abs()
-    allclose_ratio = (diff / (GAP_ATOL + GAP_RTOL * last.abs())).max()
-    gap_bound = GAP_SCALE * last.abs().max() + GAP_FLOOR
+    diff = (replay - at_replay).abs()
+    allclose_ratio = (diff / (GAP_ATOL + GAP_RTOL * at_replay.abs())).max()
+    gap_bound = GAP_SCALE * at_replay.abs().max() + GAP_FLOOR
 
-    # 3. greedy decode
+    # 3. greedy decode from the prefill's cache
     toks = [next_tok]
     times = []
     for step in range(gen_len):
@@ -135,7 +148,7 @@ def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
         "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
-        "batch": B, "prompt_len": P, "gen_len": gen_len,
+        "batch": B, "prompt_len": P, "gen_len": gen_len, "replay_len": R,
         "n_params": count_params(model),
         "ttft_s": ttft,
         "prefill_flash_launches": prefill_launches,
@@ -162,6 +175,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--replay-len", type=int, default=None,
+                    help="prompt tokens replayed through decode to check "
+                         "the prefill (default: the whole prompt)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights and the prompts")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -181,7 +197,8 @@ def main(argv=None) -> int:
     prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, args.seed,
                            dev)
     res = {"arch": args.arch, "reduced": args.reduced, "seed": args.seed,
-           **serve(model, prompts, args.gen_len)}
+           **serve(model, prompts, args.gen_len,
+                   replay_len=args.replay_len)}
     print(f"{res['config']} on {res['device_name']}: batch {res['batch']}, "
           f"prompt {res['prompt_len']}, gen {res['gen_len']}: "
           f"ttft {res['ttft_s'] * 1e3:.1f} ms, decode step median "

@@ -145,15 +145,19 @@ def _attn_chunked(q, k, v, cfg: AttentionConfig, q_chunk: int, kv_chunk: int
 
 
 def mha_train(attn: Attention, x: torch.Tensor, positions: torch.Tensor, *,
-              impl: str = "dense", q_chunk: int = 512, kv_chunk: int = 1024
-              ) -> torch.Tensor:
+              impl: str = "dense", q_chunk: int = 512, kv_chunk: int = 1024,
+              cache: Optional[Cache] = None) -> torch.Tensor:
     """Full-sequence causal attention. x: (B, S, D).
 
     On CUDA the flash-attention kernel runs whatever ``impl`` says; on the
-    CPU ``impl`` picks the reference's dense or chunked path."""
+    CPU ``impl`` picks the reference's dense or chunked path.  With
+    ``cache`` (a serving prefill) K and V of positions 0..S−1 are also
+    written into it, as S decode steps would leave them."""
     cfg = attn.cfg
     B, S, D = x.shape
     q, k, v = _project_qkv(attn, x, positions)
+    if cache is not None:
+        _fill_cache(cache, k, v, windowed=cfg.window is not None)
     if x.device.type == "cuda":
         out = flash_ops.flash_attention(q, k, v, causal=True,
                                         window=cfg.window,
@@ -177,6 +181,20 @@ def init_cache(cfg: AttentionConfig, batch: int, max_seq: int,
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _fill_cache(cache: Cache, k: torch.Tensor, v: torch.Tensor, *,
+                windowed: bool) -> None:
+    """Write k / v (B, S, KV, hd) of positions 0..S−1 into ``cache``: slot
+    t for position t, or t mod L in a windowed layer's rolling buffer of L
+    slots, where only the last L positions survive."""
+    S, L = k.shape[1], cache["k"].shape[1]
+    if not windowed and S > L:
+        raise ValueError(f"a cache of {L} positions cannot take {S}")
+    pos = torch.arange(max(0, S - L), S, device=k.device)
+    slots = pos % L
+    cache["k"][:, slots] = k[:, pos].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, pos].to(cache["v"].dtype)
 
 
 def mha_decode(attn: Attention, cache: Cache, x: torch.Tensor,

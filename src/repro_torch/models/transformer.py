@@ -139,10 +139,11 @@ class Block(nn.Module):
         self.attn = Attention(cfg.attn_cfg(local=local), device=device)
         self.ffn = FFN(cfg, device=device)
 
-    def forward(self, x, positions, cfg: TransformerConfig):
+    def forward(self, x, positions, cfg: TransformerConfig,
+                cache: Optional[Cache] = None):
         x = x + mha_train(self.attn, self.ln_attn(x), positions,
                           impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
-                          kv_chunk=cfg.kv_chunk)
+                          kv_chunk=cfg.kv_chunk, cache=cache)
         return x + self.ffn(self.ln_ffn(x))
 
     def decode(self, x, cache: Cache, position):
@@ -204,14 +205,20 @@ def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def transformer_apply(model: Transformer, tokens: torch.Tensor
+def transformer_apply(model: Transformer, tokens: torch.Tensor,
+                      cache: Optional[List[Cache]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int → (logits (B, S, V) in cfg.dtype, aux_loss)."""
+    """tokens: (B, S) int → (logits (B, S, V) in cfg.dtype, aux_loss).
+
+    With ``cache`` (from `init_decode_cache`, at least S positions) the
+    forward also fills it, so decoding can go on at position S: a serving
+    prefill.  The reference replays the prompt through decode instead."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = _embed(model, tokens)
-    for blk in model.layers:
-        x = blk(x, positions, model.cfg)
+    caches = [None] * len(model.layers) if cache is None else cache
+    for blk, layer_cache in zip(model.layers, caches):
+        x = blk(x, positions, model.cfg, layer_cache)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return _logits(model, x), aux
 

@@ -37,13 +37,14 @@ def test_serve_cli_cpu_reduced(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--reduced", "--batch", "2", "--prompt-len", "24", "--gen-len", "5",
-         "--seed", "3", "--json", str(out)],
+         "--replay-len", "16", "--seed", "3", "--json", str(out)],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     res = json.loads(out.read_text())
     assert (res["arch"], res["config"], res["device"]) == \
         ("qwen3-1.7b", "qwen3-1.7b-reduced", "cpu")
-    assert (res["batch"], res["prompt_len"], res["gen_len"]) == (2, 24, 5)
+    assert (res["batch"], res["prompt_len"], res["gen_len"],
+            res["replay_len"]) == (2, 24, 5, 16)
     assert res["logits_finite"]
     # on the CPU prefill and decode round alike: the reference's own
     # elementwise tolerance holds, and so does the logit-scale bound
@@ -69,6 +70,39 @@ def test_serve_is_deterministic_and_greedy():
     from repro_torch.models.transformer import transformer_apply
     logits, _ = transformer_apply(model, prompts)
     assert [t[0] for t in a["tokens"]] == logits[:, -1].float().argmax(-1).tolist()
+
+
+def test_serve_decodes_as_the_example_does():
+    # examples/serve_lm.py decodes from the cache its replay filled; serve()
+    # decodes from the cache its prefill filled: the same tokens
+    from repro_torch.models.transformer import (
+        init_decode_cache, transformer_decode,
+    )
+    cfg = t_qwen3.REDUCED
+    model = transformer_init(cfg, torch.Generator().manual_seed(4))
+    B, P, gen = 2, 12, 5
+    prompts = t_serve.make_prompts(cfg.vocab, B, P, seed=4, device="cpu")
+    got = t_serve.serve(model, prompts, gen, warmup=0)
+    assert got["replay_len"] == P and got["prompt_allclose_ratio"] <= 1.0
+    cache = init_decode_cache(cfg, B, P + gen)
+    for i in range(P):
+        logits, cache = transformer_decode(model, cache, prompts[:, i:i + 1],
+                                           torch.full((B,), i))
+    toks = [logits[:, 0].float().argmax(-1)]
+    for step in range(gen):
+        logits, cache = transformer_decode(model, cache, toks[-1][:, None],
+                                           torch.full((B,), P + step))
+        toks.append(logits[:, 0].float().argmax(-1))
+    assert got["tokens"] == torch.stack(toks, 1).tolist()
+
+
+@pytest.mark.parametrize("replay_len", [0, 13])
+def test_serve_rejects_bad_replay_len(replay_len):
+    cfg = t_qwen3.REDUCED
+    model = transformer_init(cfg, torch.Generator().manual_seed(0))
+    prompts = t_serve.make_prompts(cfg.vocab, 1, 12, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="replay_len"):
+        t_serve.serve(model, prompts, 2, replay_len=replay_len, warmup=0)
 
 
 def test_serve_defaults_to_cuda_and_raises_without_card(monkeypatch):

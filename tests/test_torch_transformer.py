@@ -206,6 +206,40 @@ def test_decode_matches_forward_and_reference(variant):
         assert min(c["k"].shape[1] for c in cache) == jcfg.window
 
 
+@pytest.mark.parametrize("variant", ["dense", "gemma2ish", "window"])
+def test_prefill_fills_cache_as_decode_does(variant):
+    """A prefill given a cache leaves it as S decode steps would (rolling
+    buffers: the last ``window`` positions), and decoding goes on from it
+    as from the replayed cache.  The prefill projects all S rows at once,
+    which can move a bf16 element by one unit in the last place."""
+    cfg = transformer_config_from(VARIANTS[variant])
+    model = transformer_init(cfg, torch.Generator().manual_seed(2))
+    B, S, extra = 2, 11, 3
+    toks = torch.as_tensor(_toks(cfg.vocab, B, S + extra, seed=6)).long()
+    filled = init_decode_cache(cfg, B, S + extra)
+    transformer_apply(model, toks[:, :S], filled)
+    replayed = init_decode_cache(cfg, B, S + extra)
+    for i in range(S):
+        transformer_decode(model, replayed, toks[:, i:i + 1], torch.full((B,), i))
+    for a, b in zip(filled, replayed):
+        torch.testing.assert_close(a["k"], b["k"], atol=0, rtol=2 ** -7)
+        torch.testing.assert_close(a["v"], b["v"], atol=0, rtol=2 ** -7)
+    for i in range(S, S + extra):
+        la, _ = transformer_decode(model, filled, toks[:, i:i + 1],
+                                   torch.full((B,), i))
+        lb, _ = transformer_decode(model, replayed, toks[:, i:i + 1],
+                                   torch.full((B,), i))
+        np.testing.assert_allclose(_np(la), _np(lb), **DECODE_TOL)
+
+
+def test_prefill_longer_than_cache_raises():
+    cfg = transformer_config_from(TINY)
+    model = transformer_init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="cannot take"):
+        transformer_apply(model, torch.zeros(1, 9, dtype=torch.long),
+                          init_decode_cache(cfg, 1, 8))
+
+
 def test_decode_cache_written_in_place():
     cfg = transformer_config_from(TINY)
     model = transformer_init(cfg, torch.Generator().manual_seed(0))
