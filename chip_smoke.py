@@ -5,7 +5,7 @@
 Phases (any failure raises, and the script exits non-zero without its last
 line):
 
-  1. build   — compile the three CUDA kernels from ``src/repro_torch/csrc``
+  1. build   — compile the five CUDA kernels from ``src/repro_torch/csrc``
                (one nvcc per source, in parallel), print the build time and
                the ptxas reports;
   2. card    — print ``nvidia-smi --query-gpu=name,power.limit``;
@@ -17,7 +17,11 @@ line):
                (n > 1.8 M)); flash attention on the reference's kernel-test
                cases, the qwen3-1.7b shape, hd 128 window + softcap,
                non-causal and ragged S, within `FLASH_TOL` (bf16 2e-2,
-               f32 1e-5), each case's max abs error printed;
+               f32 1e-5), each case's max abs error printed; the embedding
+               bag (`BAG_CASES`: f32 / bf16, sum / mean, H 1 and 4 with
+               pads, T 1 and 26, weights; exact at H = 1, else `BAG_TOL`)
+               and the gather-aggregate (`AGG_CASES`: Dmax 1, 15, 40, F 7,
+               8, 128, 602, ragged N; `AGG_TOL`);
   4. golden  — the port's mining CLI on cuda for gnutella ×0.1, σ = 20, mis,
                batched, equal to the reference CLI's committed --json;
   5. main    — the mining CLI on cuda at paper size (mico ×1.0: 100 000
@@ -33,12 +37,27 @@ line):
                first 128 prompt tokens through decode ends on the prefill's
                logits within 0.02·max|logit| + 0.05 (``launch/serve.py``
                says why);
-  7. kernels — mining kernels vs plain versions again on real blocks of the
-               mico graph at the main path's shapes, and the flash kernel at
-               the serve phase's per-layer shape, with times (CUDA events),
-               bounds, the library call's time and the launch counts of
-               phases 5 and 6, as one JSON line;
-  8. the last line: {"ok": true, "device": {...}}.
+  7. recsys  — dlrm-rm2 at full width (26 tables of 1 000 000 × 64, random
+               from seed 0) through the arch's serve and retrieval steps:
+               serve_p99 (batch 512), serve_bulk (262 144) and
+               retrieval_cand (1 query × 1 000 448 candidates, top 100);
+               counts zeroed just before and read just after, one
+               embedding-bag launch per forward; the bags equal their
+               plain version bit for bit and the outputs equal the same
+               forward with the plain bag;
+  8. gnn     — graphsage-reddit minibatch_lg: the R-MAT stand-in graph
+               (Reddit's 232 965 vertices, 114 615 892 directed edges),
+               block 0 of the port's sampler (1 024 seeds, fanout 15-10),
+               the forward loss on the card; counts zeroed just before and
+               read just after, two gather-aggregate launches per forward;
+               logits equal to the same forward with the plain aggregate;
+  9. kernels — mining kernels vs plain versions again on real blocks of the
+               mico graph at the main path's shapes, the flash kernel at the
+               serve phase's per-layer shape, the embedding bag at
+               serve_bulk's bags and the gather-aggregate at layer 0 of the
+               block, with times (CUDA events), bounds, the library call's
+               time and the launch counts of phases 5–8, as one JSON line;
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
 nothing of the JAX package ``repro``.
@@ -86,12 +105,18 @@ GOLDEN_FLAGS = ["--dataset", "gnutella", "--scale", "0.1", "--sigma", "20",
 SERVE_FLAGS = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "1024",
                "--gen-len", "32", "--replay-len", "128", "--seed", "0"]
 
-# H100 SXM peaks: HBM bytes/s and dense bf16 tensor-core FLOP/s (NVIDIA data
-# sheet), and int32 instructions/s: 132 SMs × 64 int32 lanes per clock × the
-# 1.98 GHz boost clock (the data sheet's 67 TFLOP/s float32 counts an FMA as
-# two operations, int32 does not)
+# the GNN phase (8): the shape's graph at Reddit's size, no cut (build
+# times in PERF.md)
+SAGE_SEED = 0
+
+# H100 SXM peaks: HBM bytes/s, dense bf16 tensor-core FLOP/s and float32
+# FLOP/s outside the tensor cores (NVIDIA data sheet), and int32
+# instructions/s: 132 SMs × 64 int32 lanes per clock × the 1.98 GHz boost
+# clock (the data sheet's 67 TFLOP/s float32 counts an FMA as two
+# operations, int32 does not)
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
+F32_FLOPS_S = 67e12
 INT32_OPS_S = 132 * 64 * 1.98e9
 INT32_MAX = 2**31 - 1
 
@@ -233,9 +258,14 @@ def _counters() -> dict:
     from repro_torch.kernels.frontier_expand.kernel import frontier_expand
     from repro_torch.kernels.mis_bitmap.kernel import mis_bitmap_select
 
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
+    from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
+
     return {"frontier_expand": frontier_expand,
             "mis_bitmap": mis_bitmap_select,
-            "flash_attention": flash_attention_bhsd}
+            "flash_attention": flash_attention_bhsd,
+            "embedding_bag": embedding_bag_tbh,
+            "gather_aggregate": gather_aggregate_nf}
 
 
 def _zero_counts() -> None:
@@ -396,6 +426,306 @@ def phase_flash_kernel(dev) -> dict:
             "max_abs_err": err}
 
 
+def phase_bag_agg_parity(dev) -> dict:
+    """The embedding-bag and gather-aggregate kernels against their plain
+    versions on the parity cases; the worst error of each."""
+    from repro_torch.testing.parity import (
+        AGG_CASES, AGG_TOL, BAG_CASES, BAG_TOL, agg_case, bag_case,
+    )
+
+    worst = {"embedding_bag": 0.0, "gather_aggregate": 0.0}
+    for case in BAG_CASES:
+        worst["embedding_bag"] = max(worst["embedding_bag"], bag_case(case, dev))
+    _log(f"parity: embedding_bag == plain on {len(BAG_CASES)} cases (exact "
+         f"at H = 1, else atol = rtol = {BAG_TOL}); max_abs_err="
+         f"{worst['embedding_bag']:.3g}")
+    for case in AGG_CASES:
+        err = agg_case(case, dev)
+        worst["gather_aggregate"] = max(worst["gather_aggregate"], err)
+    _log(f"parity: gather_aggregate == plain on {len(AGG_CASES)} cases "
+         f"(atol = rtol = {AGG_TOL}); max_abs_err="
+         f"{worst['gather_aggregate']:.3g}")
+    return worst
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Mean ms of a warm call, synchronised host clock (after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+RECSYS_REPS = {"serve_p99": 10, "serve_bulk": 3, "retrieval_cand": 5}
+
+
+def phase_recsys(dev) -> tuple:
+    """dlrm-rm2 at full width through its serve and retrieval steps;
+    returns (embedding-bag launches in the run, the kernel row's numbers)."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models import dlrm
+
+    arch = get_arch("dlrm-rm2")
+    cfg = arch.cfg
+    t0 = time.monotonic()
+    model = arch.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    inputs = {shape: arch.inputs(shape, seed=0, device=dev)
+              for shape in RECSYS_REPS}
+    torch.cuda.synchronize()
+    _log(f"recsys: dlrm-rm2 ({cfg.n_sparse} tables of {cfg.table_rows} x "
+         f"{cfg.embed_dim} bf16, MLPs {cfg.bot_mlp} / {cfg.top_mlp}) and "
+         f"inputs made in {time.monotonic() - t0:.1f} s")
+
+    _zero_counts()
+    forwards, outs = 0, {}
+    for shape, reps in RECSYS_REPS.items():
+        step = arch.step_fn(shape)
+        x = inputs[shape]
+        args = [x["dense"], x["sparse_idx"]] + (
+            [x["candidates"]] if "candidates" in x else [])
+        torch.cuda.reset_peak_memory_stats()
+        ms = _wall_ms(lambda: step(model, *args), reps)
+        forwards += reps + 1
+        outs[shape] = step(model, *args)
+        forwards += 1
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        B = arch.batch(shape)
+        extra = ""
+        if "candidates" in x:
+            C = x["candidates"].shape[0]
+            extra = (f" candidates={C} ({C / ms * 1e3:.4g} scored/s)")
+        _log(f"recsys: {shape} batch={B} forward_ms={ms:.3f} "
+             f"examples_per_s={B / ms * 1e3:.6g}{extra} "
+             f"max_memory_allocated={peak}")
+    launches = _read_counts()["embedding_bag"]
+    _log(f"recsys: embedding_bag launches={launches} over {forwards} forwards")
+    if launches != forwards:
+        raise AssertionError(f"every DLRM forward must launch the embedding "
+                             f"bag once: {launches} launches, {forwards} "
+                             f"forwards")
+
+    for shape in ("serve_p99", "serve_bulk"):
+        p = outs[shape]
+        if p.shape != (arch.batch(shape),) or not torch.isfinite(p).all() \
+                or (p < 0).any() or (p > 1).any():
+            raise AssertionError(f"{shape}: probabilities out of shape or "
+                                 f"range")
+    scores, ids = outs["retrieval_cand"]
+    C = inputs["retrieval_cand"]["candidates"].shape[0]
+    if ids.shape != (1, 100) or not torch.isfinite(scores).all() or \
+            int(ids.min()) < 0 or int(ids.max()) >= C or \
+            (scores[:, 1:] > scores[:, :-1]).any():
+        raise AssertionError("retrieval_cand: top-100 out of shape or order")
+
+    # the bags of one forward against their plain version (n_hot 1: exact)
+    # and the whole forward against the same forward with the plain bag
+    ids_bulk = inputs["serve_bulk"]["sparse_idx"]
+    got = embedding_bag_tbh(model.tables, ids_bulk)
+    want = embedding_bag_ref(model.tables, ids_bulk)
+    if not torch.equal(got, want):
+        raise AssertionError("serve_bulk bags differ from the plain version")
+
+    def plain(m, idx):
+        return embedding_bag_ref(m.tables, idx)
+
+    with mock.patch.object(dlrm, "_lookups", plain):
+        for shape in RECSYS_REPS:
+            x = inputs[shape]
+            args = [x["dense"], x["sparse_idx"]] + (
+                [x["candidates"]] if "candidates" in x else [])
+            ref = arch.step_fn(shape)(model, *args)
+            pairs = zip(ref, outs[shape]) if isinstance(ref, tuple) else \
+                [(ref, outs[shape])]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError(f"{shape}: the forward differs from the "
+                                     f"same forward with the plain bag")
+    _log("recsys: serve_bulk bags == plain (exact); serve_p99, serve_bulk "
+         "probabilities and retrieval top-100 == the same forwards with the "
+         "plain bag (exact)")
+
+    # the kernel at serve_bulk's bags, timed
+    T, R, D = model.tables.shape
+    B, _, H = ids_bulk.shape
+    ms = _time_ms(lambda: embedding_bag_tbh(model.tables, ids_bulk), reps=20)
+    plain_ms = _time_ms(lambda: embedding_bag_ref(model.tables, ids_bulk),
+                        reps=3)
+    if int((ids_bulk < 0).sum()):
+        raise AssertionError("serve_bulk ids hold pads: the library call "
+                             "below has no zero row for them")
+    flat = (ids_bulk.long() + torch.arange(T, device=dev)[None, :, None] * R
+            ).reshape(B * T, H)
+    weight = model.tables.view(T * R, D)
+    lib = F.embedding_bag(flat, weight, mode="sum").view(B, T, D)
+    if not torch.equal(lib, got):
+        raise AssertionError("F.embedding_bag disagrees with the kernel")
+    library_ms = _time_ms(lambda: F.embedding_bag(flat, weight, mode="sum"),
+                          reps=20)
+    valid = int((ids_bulk >= 0).sum())
+    # a row that several bags name need be read only once: the bytes count
+    # each table's distinct ids, the adds every id
+    distinct = int(torch.unique(flat[ids_bulk.reshape(B * T, H) >= 0]).numel())
+    esize = model.tables.element_size()
+    nbytes = B * T * H * 4 + distinct * D * esize + B * T * D * esize
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, valid * D / F32_FLOPS_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": float((got.float() - want.float()).abs().max())}
+    _log(f"kernels: embedding_bag B={B} T={T} H={H} D={D} bf16, {valid} "
+         f"ids, {distinct} distinct (table, row) pairs: ms={ms:.4f} "
+         f"({nbytes / ms / 1e6:.1f} GB/s) plain_ms={plain_ms:.3f} "
+         f"F.embedding_bag_ms={library_ms:.4f} bound_ms={row['bound_ms']:.4f} "
+         f"({nbytes} bytes)")
+    del model
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+SAGE_REPS = 5
+
+
+def phase_gnn(dev) -> tuple:
+    """graphsage-reddit's forward loss on block 0 of the port's sampler;
+    returns (gather-aggregate launches in the run, the kernel row)."""
+    import numpy as np
+    from unittest import mock
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.sampler import block_graph_batch
+    from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
+    from repro_torch.kernels.gather_aggregate.ops import in_neighbor_table
+    from repro_torch.kernels.gather_aggregate.ref import gather_aggregate_ref
+    from repro_torch.models.gnn import graphsage
+
+    arch = get_arch("graphsage-reddit")
+    shape = "minibatch_lg"
+    meta = arch.meta(shape)
+    t0 = time.monotonic()
+    g = arch.graph(shape, seed=SAGE_SEED)
+    build_s = time.monotonic() - t0
+    deg = np.diff(g.out_indptr)
+    if (g.n, g.n_edges) != (meta["graph_nodes"], meta["graph_edges"]):
+        raise AssertionError(f"the graph holds {g.n} vertices and "
+                             f"{g.n_edges} directed edges, not Reddit's")
+    _log(f"gnn: R-MAT stand-in for reddit: {g.n} vertices, {g.n_edges} "
+         f"directed edges, "
+         f"max degree {int(deg.max())}, degree >= 15: "
+         f"{float((deg >= 15).mean()):.3f} of vertices; built in "
+         f"{build_s:.1f} s")
+    sampler = arch.sampler(g, shape, seed=SAGE_SEED)
+    t0 = time.monotonic()
+    blk = sampler.sample(0)
+    sample_s = time.monotonic() - t0
+    seeds = blk.node_ids[:meta["seeds"]]
+    feats, labels = arch.node_data(shape, g.n, seed=SAGE_SEED, device=dev)
+    gb = block_graph_batch(blk, feats, labels)
+    model = arch.init(shape, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    loss_fn = arch.loss_fn(shape)
+    nbrs = in_neighbor_table(gb.edge_src, gb.edge_dst, gb.edge_mask,
+                             gb.x.shape[0])
+    _log(f"gnn: block 0 (cap {sampler.node_cap} nodes, {sampler.edge_cap} "
+         f"edges): {blk.n_real_nodes} real nodes, {blk.n_real_edges} real "
+         f"edges, largest in-degree {nbrs.shape[1]}, seeds with degree >= "
+         f"15: {float((deg[seeds] >= 15).mean()):.3f}; sampled in "
+         f"{sample_s:.2f} s")
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _wall_ms(lambda: loss_fn(model, gb), SAGE_REPS)
+    loss = loss_fn(model, gb)
+    torch.cuda.synchronize()
+    forwards = SAGE_REPS + 2
+    launches = _read_counts()["gather_aggregate"]
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"gnn: graphsage-reddit {shape} forward_ms={ms:.3f} "
+         f"loss={float(loss):.6f} max_memory_allocated={peak} "
+         f"gather_aggregate launches={launches} over {forwards} forwards")
+    if launches != 2 * forwards:
+        raise AssertionError(f"every forward must launch the gather-"
+                             f"aggregate twice: {launches} launches, "
+                             f"{forwards} forwards")
+    if not torch.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+
+    got = graphsage.sage_apply(model, gb).float()
+    with mock.patch.object(graphsage, "gather_aggregate",
+                           gather_aggregate_ref):
+        want = graphsage.sage_apply(model, gb).float()
+    # the same bf16 inputs, f32 sums in the same order and one rounding:
+    # the aggregates, and so the logits, must be equal
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"sage logits differ from the plain aggregate's "
+                             f"by up to {err} (max |logit| "
+                             f"{float(want.abs().max()):.4g})")
+    _log(f"gnn: logits == the same forward with the plain aggregate (exact; "
+         f"max |logit| {float(want.abs().max()):.4g})")
+
+    # the kernel at layer 0 of the block, timed
+    h = gb.x.to(torch.bfloat16)
+    N, Fd = h.shape
+    k_out = gather_aggregate_nf(h, nbrs, mean=True)
+    p_out = gather_aggregate_ref(h, nbrs, mean=True)
+    k_err = float((k_out.float() - p_out.float()).abs().max())
+    if not torch.equal(k_out, p_out):
+        raise AssertionError(f"gather_aggregate at layer 0 differs from its "
+                             f"plain version by up to {k_err}")
+    ms_k = _time_ms(lambda: gather_aggregate_nf(h, nbrs, mean=True), reps=20)
+    plain_ms = _time_ms(lambda: gather_aggregate_ref(h, nbrs, mean=True),
+                        reps=3)
+    valid_mask = nbrs >= 0
+    deg_in = valid_mask.sum(1)
+    crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(deg_in, 0)
+    col = nbrs[valid_mask].long()
+    vals = (1.0 / deg_in.clamp(min=1).float()).repeat_interleave(deg_in)
+    lib_dtype = torch.bfloat16
+    try:
+        adj = torch.sparse_csr_tensor(crow, col, vals.to(lib_dtype), (N, N),
+                                      check_invariants=False)
+        torch.sparse.mm(adj, h)
+    except RuntimeError as e:   # a yardstick only: time it in f32 instead
+        _log(f"kernels: torch.sparse.mm has no bf16 CSR path here ({e}); "
+             f"timing it in f32")
+        lib_dtype = torch.float32
+        adj = torch.sparse_csr_tensor(crow, col, vals, (N, N),
+                                      check_invariants=False)
+    h_lib = h.to(lib_dtype)
+    library_ms = _time_ms(lambda: torch.sparse.mm(adj, h_lib), reps=20)
+    lib_err = float((torch.sparse.mm(adj, h_lib).float()
+                     - k_out.float()).abs().max())
+    valid = int(valid_mask.sum())
+    # a row that several nodes aggregate need be read only once: the bytes
+    # count the distinct neighbours, the adds every valid one
+    distinct = int(torch.unique(col).numel())
+    esize = h.element_size()
+    nbytes = N * nbrs.shape[1] * 4 + distinct * Fd * esize + N * Fd * esize
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = (valid + N) * Fd / F32_FLOPS_S
+    row = {"ms": ms_k, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": max(err, k_err)}
+    _log(f"kernels: gather_aggregate N={N} F={Fd} Dmax={nbrs.shape[1]} bf16 "
+         f"mean, {valid} valid neighbours, {distinct} distinct: ms={ms_k:.4f} "
+         f"({nbytes / ms_k / 1e6:.1f} GB/s) plain_ms={plain_ms:.3f} "
+         f"sparse_mm_ms={library_ms:.4f} ({str(lib_dtype)[6:]}, max abs diff "
+         f"to the kernel {lib_err:.3g}) bound_ms={row['bound_ms']:.4f} "
+         f"({nbytes} bytes)")
+    return launches, row
+
+
 def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     """Kernel vs plain version on real mico blocks, timed, with bounds."""
     from repro_torch.core import MatchConfig
@@ -513,10 +843,13 @@ def main(argv=None) -> int:
     phase_card()
     worst = phase_parity(dev)
     worst_flash = phase_flash_parity(dev)
+    worst_new = phase_bag_agg_parity(dev)
     OUT.mkdir(parents=True, exist_ok=True)
     phase_golden(OUT)
     launches = phase_main(OUT, args.mico_sigma)
     flash_launches = phase_serve(OUT)
+    bag_launches, bag = phase_recsys(dev)
+    agg_launches, agg = phase_gnn(dev)
     kernels = phase_kernels(dev, launches, worst, args.mico_sigma)
     flash = phase_flash_kernel(dev)
     kernels.append({
@@ -528,6 +861,19 @@ def main(argv=None) -> int:
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"]})
+    for name, n, row, replaces in (
+            ("embedding_bag", bag_launches, bag,
+             "src/repro/kernels/embedding_bag/kernel.py:20"),
+            ("gather_aggregate", agg_launches, agg,
+             "src/repro/kernels/gather_aggregate/kernel.py:24")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": n,
+            "max_abs_err": max(worst_new[name], row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

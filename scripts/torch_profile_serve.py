@@ -55,7 +55,7 @@ def _report(name: str, prof, wall: float, top: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs("lm"))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--decode-steps", type=int, default=8)

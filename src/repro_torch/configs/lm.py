@@ -13,20 +13,14 @@ specs and no optimizer.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+from .base import ShapeCell
 from ..models.transformer import (
     TransformerConfig,
     transformer_apply,
     transformer_decode,
 )
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeCell:
-    name: str
-    kind: str                 # train | prefill | decode
-    meta: Dict[str, Any]
 
 
 LM_SHAPES = {

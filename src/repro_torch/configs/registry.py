@@ -5,20 +5,25 @@ reference's registry raises `NotImplementedError` (ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import List, Optional
 
+# arch id → (module, family)
 _ARCH_MODULES = {
-    "qwen3-1.7b": ".qwen3_1_7b",
+    "qwen3-1.7b": (".qwen3_1_7b", "lm"),
+    "dlrm-rm2": (".dlrm_rm2", "recsys"),
+    "graphsage-reddit": (".graphsage_reddit", "gnn"),
 }
 # the reference's other archs, waiting for their layers or configs
 _NOT_PORTED = (
     "minitron-4b", "gemma2-27b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
-    "graphsage-reddit", "schnet", "nequip", "graphcast", "dlrm-rm2",
+    "schnet", "nequip", "graphcast",
 )
 
 
-def list_archs() -> List[str]:
-    return list(_ARCH_MODULES)
+def list_archs(family: Optional[str] = None) -> List[str]:
+    """The ported archs, or those of one family (lm, recsys, gnn)."""
+    return [name for name, (_, fam) in _ARCH_MODULES.items()
+            if family in (None, fam)]
 
 
 def get_arch(name: str):
@@ -28,5 +33,5 @@ def get_arch(name: str):
             f"{list_archs()})")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {list_archs()}")
-    mod = importlib.import_module(_ARCH_MODULES[name], package=__package__)
+    mod = importlib.import_module(_ARCH_MODULES[name][0], package=__package__)
     return mod.ARCH

@@ -16,7 +16,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["DataGraph", "DeviceGraph", "build_graph"]
+__all__ = ["DataGraph", "DeviceGraph", "build_graph", "sorted_unique"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,13 +130,28 @@ class DeviceGraph:
         )
 
 
-def _csr_from_edges(n: int, src: np.ndarray, dst: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    order = np.lexsort((dst, src))
-    src, dst = src[order], dst[order]
+def sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` by one sort: numpy ≥ 2.3's ``np.unique`` finds
+    the unique values with a hash table first, which took 37 s for 19 M
+    distinct int64 edge keys under numpy 2.3.5, where a sort of 20 M took
+    0.4 s."""
+    keys = np.sort(keys)
+    if keys.size:
+        keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
+    return keys
+
+
+def _csr_from_sorted_keys(n: int, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR of the edges ``keys = src·n + dst``, sorted ascending."""
     indptr = np.zeros(n + 1, dtype=np.int64)
-    np.add.at(indptr, src + 1, 1)
-    np.cumsum(indptr, out=indptr)
-    return indptr, dst.astype(np.int32)
+    np.cumsum(np.bincount(keys // n, minlength=n), out=indptr[1:])
+    return indptr, (keys % n).astype(np.int32)
+
+
+def _csr_from_edges(n: int, src: np.ndarray, dst: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    # one sort of the keys src·n + dst orders edges as a lexsort by (src,
+    # dst) would, in a fraction of its time on 10⁸ edges
+    return _csr_from_sorted_keys(n, np.sort(src * n + dst))
 
 
 def build_graph(
@@ -166,11 +181,12 @@ def build_graph(
     if undirected:
         src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
     # dedupe
-    keys = src * n + dst
-    keys = np.unique(keys)
-    src, dst = keys // n, keys % n
-    out_indptr, out_indices = _csr_from_edges(n, src, dst)
-    in_indptr, in_indices = _csr_from_edges(n, dst, src)
+    keys = sorted_unique(src * n + dst)
+    out_indptr, out_indices = _csr_from_sorted_keys(n, keys)
+    if undirected:   # a symmetric edge set: the transpose is the same CSR
+        in_indptr, in_indices = out_indptr, out_indices
+    else:
+        in_indptr, in_indices = _csr_from_edges(n, keys % n, keys // n)
     return DataGraph(
         n=n,
         labels=labels,
@@ -178,7 +194,7 @@ def build_graph(
         out_indices=out_indices,
         in_indptr=in_indptr,
         in_indices=in_indices,
-        edge_keys=np.sort(keys),
+        edge_keys=keys,   # sorted by sorted_unique
         n_labels=int(n_labels if n_labels is not None else (labels.max() + 1 if n else 0)),
         undirected=undirected,
     )

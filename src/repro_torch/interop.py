@@ -13,7 +13,11 @@ compares the port's outputs through them, one function per state type:
   * MNI / frac tables — `table_from_numpy` / `table_to_numpy`;
   * transformer weights — `transformer_params_from_numpy` builds the port's
     model from the reference's parameter pytree, and
-    `transformer_config_from` its config from the reference's.
+    `transformer_config_from` its config from the reference's;
+  * DLRM and GraphSAGE weights — `dlrm_params_from_numpy`,
+    `sage_params_from_numpy`;
+  * graph batches — `graph_batch_from_numpy` (from any object with the
+    reference's `GraphBatch` fields).
 """
 from __future__ import annotations
 
@@ -24,12 +28,16 @@ import torch
 
 from .core.graph import DataGraph
 from .core.plan import _TENSOR_FIELDS, PatternPlan, plan_from_numpy
+from .models.dlrm import DLRM, DLRMConfig
+from .models.gnn.common import MLP, GraphBatch
+from .models.gnn.graphsage import SAGE, SAGEConfig
 from .models.transformer import Transformer, TransformerConfig
 
 __all__ = ["data_graph_from_arrays", "plan_from_numpy", "plan_from_fields",
            "bitmap_from_uint32", "bitmap_to_uint32", "table_from_numpy",
            "table_to_numpy", "transformer_config_from",
-           "transformer_params_from_numpy"]
+           "transformer_params_from_numpy", "dlrm_params_from_numpy",
+           "sage_params_from_numpy", "graph_batch_from_numpy"]
 
 
 def data_graph_from_arrays(g) -> DataGraph:
@@ -84,6 +92,12 @@ def transformer_config_from(cfg) -> TransformerConfig:
                              dtype=getattr(torch, np.dtype(cfg.dtype).name))
 
 
+def _put(param, a, transpose=False) -> None:
+    a = np.array(a, np.float32)
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(a.T.copy() if transpose else a))
+
+
 def transformer_params_from_numpy(tree, cfg: TransformerConfig,
                                   device="cpu") -> Transformer:
     """The port's model holding the reference's parameters.
@@ -96,29 +110,65 @@ def transformer_params_from_numpy(tree, cfg: TransformerConfig,
     ``cfg.dtype``.
     """
     model = Transformer(cfg, device=device)
-
-    def put(param, a, transpose=False):
-        a = np.array(a, np.float32)
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(a.T.copy() if transpose else a))
-
-    put(model.embed, tree["embed"]["table"])
-    put(model.ln_final.scale, tree["ln_final"]["scale"])
+    _put(model.embed, tree["embed"]["table"])
+    _put(model.ln_final.scale, tree["ln_final"]["scale"])
     for i, blk in enumerate(model.layers):
         if cfg.local_global:
             p = tree["layers"]["local" if i % 2 == 0 else "global"]
             step = i // 2
         else:
             p, step = tree["layers"], i
-        put(blk.ln_attn.scale, p["ln_attn"]["scale"][step])
-        put(blk.ln_ffn.scale, p["ln_ffn"]["scale"][step])
+        _put(blk.ln_attn.scale, p["ln_attn"]["scale"][step])
+        _put(blk.ln_ffn.scale, p["ln_ffn"]["scale"][step])
         for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(blk.attn, name).weight, p["attn"][name]["kernel"][step],
-                transpose=True)
+            _put(getattr(blk.attn, name).weight,
+                 p["attn"][name]["kernel"][step], transpose=True)
         if cfg.qk_norm:
-            put(blk.attn.q_norm.scale, p["attn"]["q_norm"]["scale"][step])
-            put(blk.attn.k_norm.scale, p["attn"]["k_norm"]["scale"][step])
+            _put(blk.attn.q_norm.scale, p["attn"]["q_norm"]["scale"][step])
+            _put(blk.attn.k_norm.scale, p["attn"]["k_norm"]["scale"][step])
         for name in ("wi", "wg", "wo"):
-            put(getattr(blk.ffn, name).weight, p["ffn"][name]["kernel"][step],
-                transpose=True)
+            _put(getattr(blk.ffn, name).weight,
+                 p["ffn"][name]["kernel"][step], transpose=True)
     return model
+
+
+def _put_mlp(mlp: MLP, tree) -> None:
+    for i, layer in enumerate(mlp.layers):
+        _put(layer.weight, tree[f"l{i}"]["kernel"], transpose=True)
+
+
+def dlrm_params_from_numpy(tree, cfg: DLRMConfig, device="cpu") -> DLRM:
+    """The port's DLRM holding the reference's ``dlrm_init`` pytree (numpy
+    leaves): MLP kernels transposed to (out, in) and rounded to bf16, the
+    26 f32 tables stacked into one bf16 (T, R, D) tensor, as every
+    reference lookup rounds them."""
+    model = DLRM(cfg, device=device)
+    _put_mlp(model.bot, tree["bot"])
+    _put_mlp(model.top, tree["top"])
+    for t in range(cfg.n_sparse):
+        _put(model.tables[t], tree["tables"][f"t{t}"]["table"])
+    return model
+
+
+def sage_params_from_numpy(tree, cfg: SAGEConfig, device="cpu") -> SAGE:
+    """The port's GraphSAGE holding the reference's ``sage_init`` pytree."""
+    model = SAGE(cfg, device=device)
+    for l in range(cfg.n_layers):
+        _put(model.self_[l].weight, tree[f"self{l}"]["kernel"], transpose=True)
+        _put(model.neigh[l].weight, tree[f"neigh{l}"]["kernel"],
+             transpose=True)
+    _put(model.head.weight, tree["head"]["kernel"], transpose=True)
+    return model
+
+
+def graph_batch_from_numpy(gb, device="cpu") -> GraphBatch:
+    """A `GraphBatch` with the arrays of ``gb`` (any object with the
+    reference's `GraphBatch` fields; each converted with ``np.asarray``)."""
+    def up(a):
+        return None if a is None else torch.as_tensor(np.array(a)).to(device)
+
+    return GraphBatch(x=up(gb.x), edge_src=up(gb.edge_src),
+                      edge_dst=up(gb.edge_dst), edge_mask=up(gb.edge_mask),
+                      node_mask=up(gb.node_mask), graph_ids=up(gb.graph_ids),
+                      n_graphs=int(gb.n_graphs), targets=up(gb.targets),
+                      pos=up(gb.pos))

@@ -28,6 +28,8 @@ SOURCES = {
     "frontier_expand": CSRC / "frontier_expand.cu",
     "mis_bitmap": CSRC / "mis_bitmap.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "embedding_bag": CSRC / "embedding_bag.cu",
+    "gather_aggregate": CSRC / "gather_aggregate.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -169,7 +169,7 @@ def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs("lm"))
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's reduced configuration")
     ap.add_argument("--batch", type=int, default=4)

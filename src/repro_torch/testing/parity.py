@@ -3,8 +3,9 @@
 Every case is built from a numpy seed, runs the CUDA kernel and its plain
 torch version on the same device tensors, and compares every output.  The
 mining kernels compute integers and bits, so their tolerance is zero; the
-flash-attention kernel is held to `FLASH_TOL` (the reference's own kernel
-tests' tolerances).  Each ``*_case`` function returns the largest absolute
+flash-attention, embedding-bag and gather-aggregate kernels are held to
+`FLASH_TOL`, `BAG_TOL` and `AGG_TOL` (the reference's own kernel tests'
+tolerances; an embedding bag of one id per bag is held to zero).  Each ``*_case`` function returns the largest absolute
 difference it saw and raises ``AssertionError`` on any mismatch.
 """
 from __future__ import annotations
@@ -21,15 +22,21 @@ from ..core.matcher import MatchConfig, _init_roots, edge_exists
 from ..core.mis import bitmap_words, mis_greedy_update
 from ..core.pattern import Pattern
 from ..core.plan import make_plan, stack_plans
+from ..kernels.embedding_bag.ops import embedding_bag
+from ..kernels.embedding_bag.ref import embedding_bag_ref
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import flash_attention_ref
 from ..kernels.frontier_expand.ops import frontier_expand_level
 from ..kernels.frontier_expand.ref import frontier_expand_ref
+from ..kernels.gather_aggregate.ops import gather_aggregate
+from ..kernels.gather_aggregate.ref import gather_aggregate_ref
 from ..kernels.mis_bitmap.kernel import mis_bitmap_select
 
 __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
            "max_abs_diff", "frontier_work", "mis_rows_scanned",
-           "FLASH_CASES", "FLASH_TOL", "flash_inputs", "flash_case"]
+           "FLASH_CASES", "FLASH_TOL", "flash_inputs", "flash_case",
+           "BAG_CASES", "BAG_TOL", "bag_case", "AGG_CASES", "AGG_TOL",
+           "agg_case"]
 
 
 def random_graph(n: int, deg: int, n_labels: int, seed: int,
@@ -232,3 +239,91 @@ def flash_case(case, device, seed=0) -> float:
         raise AssertionError(f"flash_attention {name}: max abs err {err} "
                              f"past atol = rtol = {tol}")
     return err
+
+
+def _close_or_raise(name: str, got: torch.Tensor, want: torch.Tensor,
+                    tol: float) -> float:
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = torch.equal(got, want) if tol == 0 else \
+        torch.allclose(got, want, atol=tol, rtol=tol)
+    if not ok:
+        raise AssertionError(f"{name}: max abs err {err} past atol = rtol = "
+                             f"{tol}")
+    return err
+
+
+# embedding bag: (name, T, R, D, B, H, dtype, mean, weighted).  Ids are
+# drawn from [-1, R), so bags hold pads; H = 1 and H = 4, one table and
+# DLRM's 26, both combiners, with and without weights, an odd D (one
+# column per lane) and DLRM's D = 64.
+BAG_CASES = [
+    (f"T{T}-H{H}-D{D}-{str(dt)[6:]}-{'mean' if mean else 'sum'}"
+     f"{'-weighted' if w else ''}", T, 1000, D, 64, H, dt, mean, w)
+    for T in (1, 26) for H in (1, 4) for dt in (_F32, _BF16)
+    for mean in (False, True) for w in (False, True) for D in (64, 9)
+    if D == 64 or (T == 1 and not w)
+]
+# bf16: the output's rounding; f32: summation order; one id per bag: exact
+BAG_TOL = {_F32: 1e-6, _BF16: 2e-2}
+
+
+def bag_inputs(T, R, D, B, H, dtype, weighted, device, seed=0):
+    """tables (T, R, D) N(0, 1), ids (B, T, H) in [-1, R), weights
+    (B, T, H) N(0, 1) or None, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    tables = torch.as_tensor(rng.normal(size=(T, R, D)), dtype=torch.float32)
+    ids = torch.as_tensor(rng.integers(-1, R, (B, T, H)), dtype=torch.int32)
+    w = (torch.as_tensor(rng.normal(size=(B, T, H)), dtype=torch.float32)
+         .to(device=device, dtype=dtype) if weighted else None)
+    return tables.to(device=device, dtype=dtype), ids.to(device), w
+
+
+def bag_case(case, device, seed=0) -> float:
+    """`embedding_bag` against its plain version on ``device``; returns the
+    largest absolute difference, raises past `BAG_TOL` (zero at H = 1)."""
+    name, T, R, D, B, H, dtype, mean, weighted = case
+    tables, ids, w = bag_inputs(T, R, D, B, H, dtype, weighted, device, seed)
+    combiner = "mean" if mean else "sum"
+    got = embedding_bag(tables, ids, w, combiner=combiner)
+    want = embedding_bag_ref(tables, ids, w, mean=mean)
+    return _close_or_raise(f"embedding_bag {name}", got, want,
+                           0.0 if H == 1 else BAG_TOL[dtype])
+
+
+# gather-aggregate: (name, N, F, Dmax, dtype, mean).  Ragged N (not a
+# multiple of the 8 nodes of a block), Dmax 1, 15 and 40 (two ballots of
+# ids), F 8, 128 and GraphSAGE-reddit's 602 (4-byte aligned bf16 rows) and
+# an odd F; a third of the rows all pad, the rest with pads drawn in.
+AGG_CASES = [
+    (f"N{N}-F{F}-D{Dm}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
+     N, F, Dm, dt, mean)
+    for dt in (_F32, _BF16) for mean in (False, True)
+    for N, F, Dm in ((1001, 8, 1), (1001, 128, 15), (1001, 602, 15),
+                     (203, 602, 1), (333, 7, 40))
+]
+AGG_TOL = {_F32: 1e-5, _BF16: 2e-2}
+
+
+def agg_inputs(N, F, Dmax, dtype, device, seed=0):
+    """features (N, F) N(0, 1); nbrs (N, Dmax) in [-1, N), a third of the
+    rows all −1; from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    feats = torch.as_tensor(rng.normal(size=(N, F)), dtype=torch.float32)
+    nbrs = rng.integers(-1, N, (N, Dmax)).astype(np.int32)
+    nbrs[rng.random(N) < 1 / 3] = -1
+    return feats.to(device=device, dtype=dtype), torch.as_tensor(nbrs).to(device)
+
+
+def agg_case(case, device, seed=0) -> float:
+    """`gather_aggregate` against its plain version on ``device``; returns
+    the largest absolute difference, raises past `AGG_TOL`."""
+    name, N, F, Dmax, dtype, mean = case
+    feats, nbrs = agg_inputs(N, F, Dmax, dtype, device, seed)
+    got = gather_aggregate(feats, nbrs, mean=mean)
+    want = gather_aggregate_ref(feats, nbrs, mean=mean)
+    return _close_or_raise(f"gather_aggregate {name}", got, want,
+                           AGG_TOL[dtype])

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
-and the serving path on the card against the same run on the CPU.
+and the serving, DLRM and GraphSAGE paths on the card against the same
+runs on the CPU.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for a device and skips
 where ``torch.cuda.is_available()`` is false.  On the card run them with
@@ -25,9 +26,13 @@ from repro_torch.configs.qwen3_1_7b import REDUCED as QWEN3_REDUCED
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro_torch.launch import serve as t_serve
 from repro_torch.models.transformer import transformer_apply, transformer_init
+from repro_torch.configs.registry import get_arch
+from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
+from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
+from repro_torch.models.gnn.graphsage import sage_apply
 from repro_torch.testing.parity import (
-    FLASH_CASES, flash_case, frontier_case, mis_case, patterns_by_k,
-    random_graph,
+    AGG_CASES, BAG_CASES, FLASH_CASES, agg_case, bag_case, flash_case,
+    frontier_case, mis_case, patterns_by_k, random_graph,
 )
 
 pytestmark = pytest.mark.gpu
@@ -200,3 +205,72 @@ def test_reduced_serve_cuda_matches_cpu(cuda):
     assert res_cuda["prefill_flash_launches"] == cfg.n_layers
     assert res_cuda["max_memory_allocated"] > 0
     assert res_cuda["tokens"][0][0] == got[0, -1].argmax().item()
+
+
+@pytest.mark.parametrize("case", BAG_CASES, ids=[c[0] for c in BAG_CASES])
+def test_embedding_bag_matches_plain(cuda, case):
+    # f32 / bf16, sum / mean, H 1 (exact) and 4 with pads, T 1 and 26,
+    # weights, an odd D
+    bag_case(case, cuda)
+
+
+@pytest.mark.parametrize("case", AGG_CASES, ids=[c[0] for c in AGG_CASES])
+def test_gather_aggregate_matches_plain(cuda, case):
+    # f32 / bf16, sum / mean, Dmax 1, 15, 40, F 7, 8, 128, 602, ragged N
+    agg_case(case, cuda)
+
+
+def test_bag_and_aggregate_kernels_reject_bad_inputs(cuda):
+    tables = torch.zeros(2, 10, 8, device=cuda)
+    with pytest.raises(ValueError, match="ids"):
+        embedding_bag_tbh(tables, torch.zeros(3, 2, 1, dtype=torch.int64,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="tables"):
+        embedding_bag_tbh(tables, torch.zeros(3, 3, 1, dtype=torch.int32,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="features"):
+        gather_aggregate_nf(torch.zeros(4, 8, dtype=torch.float16,
+                                        device=cuda),
+                            torch.zeros(4, 2, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
+def test_reduced_dlrm_cuda_matches_cpu(cuda, shape):
+    arch = get_arch("dlrm-rm2")
+    cpu_model = arch.init(torch.Generator().manual_seed(0), reduced=True)
+    cuda_model = copy.deepcopy(cpu_model).to(cuda)
+    x = arch.inputs(shape, reduced=True, seed=1)
+    step = arch.step_fn(shape)
+    args = [x["dense"], x["sparse_idx"]] + (
+        [x["candidates"]] if "candidates" in x else [])
+    want = step(cpu_model, *args)
+    before = embedding_bag_tbh.launches
+    got = step(cuda_model, *[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    assert embedding_bag_tbh.launches - before == 1
+    if shape == "serve_p99":
+        # the bags are exact; cuBLAS and the CPU's bf16 products may round
+        # apart: the reference's bf16 tolerance
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   atol=2e-2, rtol=2e-2)
+    else:
+        torch.testing.assert_close(got[0].cpu(), want[0], atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_reduced_sage_cuda_matches_cpu(cuda):
+    arch = get_arch("graphsage-reddit")
+    cpu_model = arch.init("minibatch_lg", torch.Generator().manual_seed(0),
+                          reduced=True)
+    cuda_model = copy.deepcopy(cpu_model).to(cuda)
+    gb = arch.reduced_inputs("minibatch_lg")
+    gb_cuda = arch.reduced_inputs("minibatch_lg", device=cuda)
+    want = sage_apply(cpu_model, gb)
+    before = gather_aggregate_nf.launches
+    got = sage_apply(cuda_model, gb_cuda)
+    torch.cuda.synchronize()
+    assert gather_aggregate_nf.launches - before == cpu_model.cfg.n_layers
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    loss = arch.loss_fn("minibatch_lg", reduced=True)(cuda_model, gb_cuda)
+    assert torch.isfinite(loss)

@@ -23,7 +23,7 @@ from repro.configs import qwen3_1_7b as j_qwen3
 
 from repro_torch.configs import lm as t_lm
 from repro_torch.configs import qwen3_1_7b as t_qwen3
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import get_arch, list_archs
 from repro_torch.interop import transformer_config_from
 from repro_torch.launch import serve as t_serve
 from repro_torch.models.transformer import transformer_init
@@ -121,8 +121,13 @@ def test_qwen3_configs_equal_reference(name):
 def test_registry():
     arch = get_arch("qwen3-1.7b")
     assert arch.name == "qwen3-1.7b" and arch.cfg is t_qwen3.CONFIG
+    assert get_arch("dlrm-rm2").name == "dlrm-rm2"
+    assert get_arch("graphsage-reddit").name == "graphsage-reddit"
+    assert list_archs("lm") == ["qwen3-1.7b"]
+    assert list_archs("recsys") == ["dlrm-rm2"]
+    assert list_archs("gnn") == ["graphsage-reddit"]
     for other in ("mixtral-8x7b", "qwen3-moe-30b-a3b", "gemma2-27b",
-                  "minitron-4b", "dlrm-rm2"):
+                  "minitron-4b", "schnet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(other)
     with pytest.raises(KeyError):
