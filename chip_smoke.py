@@ -7,7 +7,8 @@ line):
 
   1. build   — compile the five CUDA kernels from ``src/repro_torch/csrc``
                (one nvcc per source, in parallel), print the build time and
-               the ptxas reports;
+               the ptxas reports; fails unless the flash library's SASS holds
+               HGMMA (tensor-core) instructions;
   2. card    — print ``nvidia-smi --query-gpu=name,power.limit``;
   3. parity  — each kernel against its plain torch version on the card:
                mining kernels compared exactly (frontier expansion at
@@ -52,11 +53,13 @@ line):
                read just after, two gather-aggregate launches per forward;
                logits equal to the same forward with the plain aggregate;
   9. kernels — mining kernels vs plain versions again on real blocks of the
-               mico graph at the main path's shapes, the flash kernel at the
-               serve phase's per-layer shape, the embedding bag at
-               serve_bulk's bags and the gather-aggregate at layer 0 of the
-               block, with times (CUDA events), bounds, the library call's
-               time and the launch counts of phases 5–8, as one JSON line;
+               mico graph at the main path's shapes (the frontier's hub
+               block at level 2 also by pass, with its random loads and
+               scratch), the flash kernel at the serve phase's per-layer
+               shape, the embedding bag at serve_bulk's bags and the
+               gather-aggregate at layer 0 of the block, with times (CUDA
+               events), bounds, the library call's time and the launch
+               counts of phases 5–8, as one JSON line;
  10. the last line: {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
@@ -139,6 +142,39 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms_by_kernel(fn) -> dict:
+    """Device ms of each CUDA kernel (and copy or fill) of one call of fn,
+    by torch.profiler; names cut to the kernel's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels._build import kernel_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            name = kernel_function(ev.key)[:40]
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3
+    return out
+
+
+def _peak_extra_bytes(fn, out_bytes: int) -> int:
+    """Device bytes one call of fn allocates at its peak beyond its
+    outputs' ``out_bytes`` (the caching allocator's count)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - out_bytes
+    del out
+    return extra
+
+
 def _strip_wall_clock(d: dict) -> dict:
     d = dict(d)
     d.pop("elapsed_s")
@@ -157,6 +193,8 @@ def _run_cli(flags, json_path) -> dict:
 
 
 def phase_build():
+    import shutil
+
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
@@ -167,6 +205,19 @@ def phase_build():
         for line in _build.ptxas_report(name).splitlines():
             if "Used" in line:
                 _log(f"ptxas {name}: {line.strip()}")
+    # the bf16 flash kernel must run on the tensor cores: HGMMA in its SASS
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = {}
+    for word in sass.split():
+        if word.startswith("HGMMA."):
+            hgmma[word] = hgmma.get(word, 0) + 1
+    _log(f"sass flash_attention: {hgmma}")
+    if not hgmma:
+        raise AssertionError("no HGMMA instruction in the flash kernel's SASS")
 
 
 def phase_card() -> str:
@@ -764,12 +815,18 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     plans = stack_plans([make_plan(p, g) for p in bucket3], dev)
     emb0, cnt0 = _init_roots(dev_g, plans, first, cfg)
     emb1, cnt1, *_ = frontier_expand_ref(dev_g, plans, emb0, cnt0, 1, cfg)
-    lanes, bisect_steps = frontier_work(dev_g, plans, emb1, cnt1, 2, cfg)
+    lanes, bisect_steps, rand_loads = frontier_work(dev_g, plans, emb1, cnt1,
+                                                    2, cfg)
     fe_ms = _time_ms(lambda: frontier_expand_level(dev_g, plans, emb1, cnt1,
                                                    2, cfg), reps=10)
     fe_plain_ms = _time_ms(lambda: frontier_expand_ref(dev_g, plans, emb1,
                                                        cnt1, 2, cfg), reps=2)
+    passes = _device_ms_by_kernel(
+        lambda: frontier_expand_level(dev_g, plans, emb1, cnt1, 2, cfg))
     n, P_, cap, k = g.n, emb1.shape[0], cfg.cap, 3
+    fe_scratch = _peak_extra_bytes(
+        lambda: frontier_expand_level(dev_g, plans, emb1, cnt1, 2, cfg),
+        P_ * cap * k * 4)
     graph_bytes = (n + 2 * (n + 1) + 2 * g.n_edges) * 4
     fe_bytes = graph_bytes + 2 * P_ * cap * k * 4 + P_ * (4 + 4 * (5 + 2 * k)) \
         + P_ * (4 + 4 + 1)
@@ -805,8 +862,15 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     mis_by = "bytes" if mis_bytes / HBM_BYTES_S >= mis_ops / INT32_OPS_S \
         else "operations"
     _log(f"kernels: shapes P={P_} cap={cap} k=3 n={n} live_lanes={lanes} "
-         f"bisect_steps={bisect_steps} "
+         f"bisect_steps={bisect_steps} random_loads={rand_loads} "
          f"mis_rows={rows}")
+    _log(f"kernels: frontier_expand hub block level 2 passes, device ms: "
+         + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+    _log(f"kernels: frontier_expand hub block level 2: valid rows "
+         f"{int(cnt1.sum())}, scratch {fe_scratch} bytes (allocator peak "
+         f"beyond the output table); ms={fe_ms:.4f} plain_ms={fe_plain_ms:.2f} "
+         f"bound_ms={fe_bound:.4f} ({fe_by}: {fe_bytes} bytes, {fe_ops} "
+         f"int32 operations)")
     return [
         {"name": "frontier_expand", "route": "cuda",
          "source": "src/repro_torch/csrc/frontier_expand.cu",

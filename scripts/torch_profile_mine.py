@@ -31,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.core import MatchConfig, MiningConfig, mine
 from repro_torch.core.flexis import initial_candidates
 from repro_torch.data.synthetic import PAPER_DATASETS, paper_dataset
+from repro_torch.kernels._build import kernel_source
 
 
 def main(argv=None) -> int:
@@ -90,6 +91,12 @@ def main(argv=None) -> int:
           f"share {total_us / 1e6 / wall:.3f}")
     for dev_us, count, key in rows[:args.top]:
         print(f"  {dev_us / 1e3:10.1f} ms  {count:7d}x  {key[:90]}")
+    # a port kernel may be several CUDA kernels (the frontier's passes):
+    # its device time is the sum over its source's kernels
+    for src in ("frontier_expand", "mis_bitmap"):
+        own = [r for r in rows if kernel_source(r[2]) == src]
+        print(f"  by source: {src}.cu {sum(r[0] for r in own) / 1e6:.3f} s "
+              f"in {sum(r[1] for r in own)} kernels")
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)

@@ -30,6 +30,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_arch, list_archs
+from repro_torch.kernels._build import kernel_source
 from repro_torch.launch.serve import make_prompts
 from repro_torch.models.transformer import (
     init_decode_cache, transformer_apply, transformer_decode, transformer_init,
@@ -51,6 +52,9 @@ def _report(name: str, prof, wall: float, top: int) -> None:
           f"{total_us / 1e6 / wall:.3f}")
     for dev_us, count, key in rows[:top]:
         print(f"  {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:100]}")
+    flash = [r for r in rows if kernel_source(r[2]) == "flash_attention"]
+    print(f"  by source: flash_attention.cu {sum(r[0] for r in flash) / 1e3:.3f}"
+          f" ms in {sum(r[1] for r in flash)} kernels")
 
 
 def main(argv=None) -> int:

@@ -9,19 +9,25 @@ PyTorch's current stream, so a build takes seconds, not minutes.
 Libraries land in ``build/repro_torch_ext/`` under the repository root
 (``$REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the source and
 flags, so an edited source rebuilds and an unchanged one is reused.
-`build_all` starts one ``nvcc`` per source, all together.
+`build_all` starts one ``nvcc`` per source, all together.  Every CUDA
+kernel of a source is named with that source's prefix (`KERNEL_PREFIX`), so
+a profile can sum a port kernel's device time over all its launches
+(`kernel_source`).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
-__all__ = ["SOURCES", "build_all", "load_library", "build_dir", "ptxas_report"]
+__all__ = ["SOURCES", "KERNEL_PREFIX", "build_all", "load_library",
+           "build_dir", "ptxas_report", "library_path", "kernel_function",
+           "kernel_source"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -30,6 +36,14 @@ SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
     "embedding_bag": CSRC / "embedding_bag.cu",
     "gather_aggregate": CSRC / "gather_aggregate.cu",
+}
+# the name prefix of every CUDA kernel (`__global__` function) of a source
+KERNEL_PREFIX = {
+    "frontier_expand": "frontier_",
+    "mis_bitmap": "mis_",
+    "flash_attention": "flash_attn_",
+    "embedding_bag": "bag_",
+    "gather_aggregate": "agg_",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -90,6 +104,28 @@ def build_all(names: List[str] = None) -> None:
     started = {name: _start(name) for name in names}
     for name, s in started.items():
         _finish(name, s)
+
+
+def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built."""
+    return _target(name)
+
+
+def kernel_function(key: str) -> str:
+    """The function name of a CUDA kernel as a profiler names it
+    ('void ns::f<T>(args)' → 'f'); other keys unchanged."""
+    m = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
+    return m.group(1) if m else key
+
+
+def kernel_source(key: str) -> Optional[str]:
+    """The source (a key of `SOURCES`) whose CUDA kernel a profiler's
+    kernel name ``key`` is, or None for a kernel not of the port."""
+    fn = kernel_function(key)
+    for name, prefix in KERNEL_PREFIX.items():
+        if fn.startswith(prefix):
+            return name
+    return None
 
 
 def ptxas_report(name: str) -> str:

@@ -1,9 +1,18 @@
 """Binding of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
 
 Replaces the TPU kernel ``_attn_kernel`` / ``flash_attention_bhsd`` of
-``src/repro/kernels/flash_attention/kernel.py``: one CTA per (query head
-row, 64-row query tile) loops over the live 64-row K/V tiles with an f32
-online softmax.  The library is built on first use
+``src/repro/kernels/flash_attention/kernel.py``.  Each dtype has one kernel,
+chosen by dtype inside the library, with no path from one to the other:
+
+* bfloat16 runs on the tensor cores: one CTA per (query head row, 128
+  query rows), two warpgroups of 64 rows, S = Q·Kᵀ and O += P·V by
+  ``wgmma`` (P from registers, rounded to bf16; V read MN-major), K / V
+  tiles double-buffered in swizzled shared memory by TMA, an f32
+  online softmax on the accumulator fragment;
+* float32 runs on the CUDA cores (scalar f32 FMAs, 64 query rows a CTA),
+  which keeps the f32 reference's 1e-5.
+
+The source explains both designs.  The library is built on first use
 (`repro_torch.kernels._build`).
 """
 from __future__ import annotations

@@ -2,9 +2,16 @@
 
 Replaces the TPU kernel ``_frontier_kernel`` / ``frontier_expand`` of
 ``src/repro/kernels/frontier_expand/kernel.py``.  The source explains the
-three-pass design (count, exclusive scan, write) that keeps the reference's
-survivor order without relying on in-order grid steps.  The library is
-built on first use (`repro_torch.kernels._build`).
+design: work split by candidates (one thread a candidate, its row found by
+binary search over scanned row offsets), each predicate evaluated once into
+a 64-bit survivor mask per (row, chunk), and the reference's (chunk, row,
+lane) order rebuilt from the masks' popcounts.  A launch is two halves: the
+plan sums the rows' candidate and chunk counts by warp tile of 32 rows and
+writes five totals, which the wrapper reads on the host (the one
+device-to-host read of a launch) to size the run's scratch by what the
+frontier holds: the run's per-row arrays cover the valid tiles only, and
+the plan's own scratch is 32 bytes a tile of the (P, cap) table.  The
+library is built on first use (`repro_torch.kernels._build`).
 
 ``chunk`` must be at most 64: a row's chunk is one 64-bit survivor mask.
 """
@@ -18,18 +25,25 @@ from .._build import load_library
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 MAX_CHUNK = 64
+_GRAPH = [_P, _P, _P, _P, _P, _I, _I, _I]   # CSR pointers, n, n_out, n_in
 
 
 def _lib():
     lib = load_library("frontier_expand")
-    if lib.frontier_expand_launch.argtypes is None:
-        lib.frontier_expand_launch.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-            _I, _I, _P, _P, _P, _P, _P, _P]
-        lib.frontier_expand_launch.restype = _I
-        lib.frontier_expand_scratch.argtypes = [_I, _I, _I]
-        lib.frontier_expand_scratch.restype = ctypes.c_longlong
+    if lib.frontier_expand_plan.argtypes is None:
+        lib.frontier_expand_plan.argtypes = _GRAPH + [
+            _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+        lib.frontier_expand_plan.restype = _I
+        lib.frontier_expand_run.argtypes = _GRAPH + [
+            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _L, _L, _I,
+            _P, _P, _P, _P, _P, _P]
+        lib.frontier_expand_run.restype = _I
+        lib.frontier_expand_plan_bytes.argtypes = [_I, _I]
+        lib.frontier_expand_plan_bytes.restype = _L
+        lib.frontier_expand_run_bytes.argtypes = [_I, _L, _L, _L, _I]
+        lib.frontier_expand_run_bytes.restype = _L
     return lib
 
 
@@ -72,19 +86,31 @@ def frontier_expand(labels, out_indptr, out_indices, in_indptr, in_indices,
     found = torch.empty(P, dtype=torch.int32, device=dev)
     ovf = torch.empty(P, dtype=torch.bool, device=dev)
     lib = _lib()
-    tile_sums = torch.empty(lib.frontier_expand_scratch(P, cap, max_chunks),
-                            dtype=torch.int32, device=dev)
+    graph = [labels.data_ptr(), out_indptr.data_ptr(), out_indices.data_ptr(),
+             in_indptr.data_ptr(), in_indices.data_ptr(), n,
+             out_indices.shape[0], in_indices.shape[0]]
+    frontier = [emb.data_ptr(), count.data_ptr(), plan_rows.data_ptr(), P,
+                cap, k, level, chunk]
+    plan = torch.empty(lib.frontier_expand_plan_bytes(P, cap),
+                       dtype=torch.uint8, device=dev)
+    totals = torch.empty(5, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frontier_expand_launch(
-            labels.data_ptr(), out_indptr.data_ptr(),
-            out_indices.data_ptr(), in_indptr.data_ptr(),
-            in_indices.data_ptr(), n, out_indices.shape[0],
-            in_indices.shape[0], emb.data_ptr(), count.data_ptr(),
-            plan_rows.data_ptr(), P, cap, k, level, chunk, max_chunks,
-            bisect_iters, tile_sums.data_ptr(), out_emb.data_ptr(),
-            out_count.data_ptr(), found.data_ptr(), ovf.data_ptr(),
-            stream)
+        err = lib.frontier_expand_plan(*graph, *frontier, max_chunks,
+                                       plan.data_ptr(), totals.data_ptr(),
+                                       stream)
+        if err != 0:
+            raise RuntimeError(f"frontier_expand plan launch failed: CUDA "
+                               f"error {err}")
+        tiles, cands, slots, tile_chunks, maxc = totals.tolist()
+        run = torch.empty(lib.frontier_expand_run_bytes(P, tiles, slots,
+                                                        tile_chunks, maxc),
+                          dtype=torch.uint8, device=dev)
+        err = lib.frontier_expand_run(
+            *graph, *frontier, max_chunks, bisect_iters, plan.data_ptr(),
+            tiles, cands, slots, tile_chunks, maxc, run.data_ptr(),
+            out_emb.data_ptr(), out_count.data_ptr(), found.data_ptr(),
+            ovf.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"frontier_expand launch failed: CUDA error {err}")
     frontier_expand.launches += 1

@@ -129,13 +129,16 @@ def mis_case(n: int, P: int, cap: int, K: int, k: int, seed: int, device,
 
 
 def frontier_work(g: DeviceGraph, plans, emb, count, level: int,
-                  cfg: MatchConfig) -> Tuple[int, int]:
-    """(live lanes, bisection steps) one expansion level needs on these
-    inputs.  Live lanes: each valid row's anchor neighbours, up to
+                  cfg: MatchConfig) -> Tuple[int, int, int]:
+    """(live lanes, bisection steps, random loads) one expansion level needs
+    on these inputs.  Live lanes: each valid row's anchor neighbours, up to
     max_chunks · chunk of them.  Bisection steps: for each lane that passes
     the label, degree and injectivity filters, ``bisect_iters + 1`` steps
     per edge check, up to the first check that fails (the kernel's order:
-    out-check then in-check of each earlier column)."""
+    out-check then in-check of each earlier column).  Random loads: the 4-byte
+    graph reads at data-dependent addresses, in the kernel's order with its
+    early exits: a lane's candidate id and label, four indptr words past the
+    label test, two indptr words and the steps of each edge check run."""
     P, cap, k = emb.shape
     dev, n, C, i = emb.device, g.n, cfg.chunk, level
     indices_cat = torch.cat([g.out_indices, g.in_indices])
@@ -149,7 +152,7 @@ def frontier_work(g: DeviceGraph, plans, emb, count, level: int,
                         g.in_indptr[a] + g.out_indices.shape[0])
     deg = torch.where(use_out, out_deg[a], in_deg[a])
     valid = torch.arange(cap, device=dev)[None] < count[:, None]
-    lanes = steps = 0
+    lanes = steps = loads = 0
     for c in range(cfg.max_chunks):
         off = c * C + torch.arange(C, device=dev)
         p, r, lane = (valid[..., None] & (off < deg[..., None])).nonzero(
@@ -159,7 +162,9 @@ def frontier_work(g: DeviceGraph, plans, emb, count, level: int,
         lanes += p.numel()
         cand = indices_cat[(start[p, r] + off[lane]).clamp(0, last).long()]
         cs = cand.clamp(0, n - 1).long()
-        m = ((g.labels[cs] == plans.cand_label[p, i])
+        label_ok = g.labels[cs] == plans.cand_label[p, i]
+        loads += 2 * p.numel() + 4 * int(label_ok.sum())
+        m = (label_ok
              & (out_deg[cs] >= plans.min_out[p, i])
              & (in_deg[cs] >= plans.min_in[p, i]))
         for j in range(i):
@@ -170,10 +175,12 @@ def frontier_work(g: DeviceGraph, plans, emb, count, level: int,
             prev = emb[p, r, j].clamp(0, n - 1)
             for need, u, v in ((plans.check_out[p, i, j], cs, prev),
                                (plans.check_in[p, i, j], prev, cs)):
-                steps += int((alive & need).sum()) * (cfg.bisect_iters + 1)
+                run = int((alive & need).sum())
+                steps += run * (cfg.bisect_iters + 1)
+                loads += run * (cfg.bisect_iters + 1 + 2)
                 alive &= ~need | edge_exists(g.out_indptr, g.out_indices, u,
                                              v, cfg.bisect_iters)
-    return lanes, steps
+    return lanes, steps, loads
 
 
 def mis_rows_scanned(emb, n_valid, tau, k: int) -> int:

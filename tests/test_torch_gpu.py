@@ -16,9 +16,13 @@ import pytest
 import torch
 
 from repro_torch.core import MatchConfig, MiningConfig, build_graph, mine
+from repro_torch.core.graph import DeviceGraph
+from repro_torch.core.matcher import _init_roots
 from repro_torch.core.mis import bitmap_words
+from repro_torch.core.plan import make_plan, stack_plans
 from repro_torch.data.synthetic import rmat_graph
 from repro_torch.kernels.frontier_expand.kernel import frontier_expand
+from repro_torch.kernels.frontier_expand.ops import frontier_expand_level
 from repro_torch.kernels.mis_bitmap.kernel import (
     mis_bitmap_select, uses_shared_memory,
 )
@@ -108,6 +112,59 @@ def test_frontier_edgeless(cuda):
     assert frontier_case(g, [pat], _cfg(g, cap=64, root_block=32), cuda) == 0
 
 
+def _hub_graph(hub_deg, n=600, seed=0):
+    """Directed: vertex 0 points at vertices 1..hub_deg, every other vertex
+    at 1-3 random vertices; one label, so every lane's label test passes."""
+    rng = np.random.default_rng(seed)
+    src = [np.zeros(hub_deg, np.int64)]
+    dst = [np.arange(1, hub_deg + 1)]
+    outs = rng.integers(1, 4, n - 1)
+    src.append(np.repeat(np.arange(1, n), outs))
+    dst.append(rng.integers(1, n, int(outs.sum())))
+    edges = np.stack([np.concatenate(src), np.concatenate(dst)], 1)
+    return build_graph(n, edges, np.zeros(n, np.int32), undirected=False)
+
+
+@pytest.mark.parametrize("hub_deg,chunk", [(300, 16), (64, 16), (128, 64)])
+def test_frontier_hub_row_among_small_rows(cuda, hub_deg, chunk):
+    # one hub row (row 0 of the block) in a 256-row tile of rows of degree
+    # 1-3: the candidate split spreads it, the order holds; 64 and 128 are
+    # exact multiples of the chunk
+    g = _hub_graph(hub_deg)
+    cfg = _cfg(g, cap=4096, root_block=512, chunk=chunk)
+    assert cfg.max_chunks == -(-hub_deg // chunk) > 1
+    for k, pats in patterns_by_k(g, 3, per_level=8).items():
+        assert frontier_case(g, pats, cfg, cuda) == 0
+
+
+@pytest.mark.parametrize("cap", [8, 13, 50])
+def test_frontier_cap_cut_inside_a_mask(cuda, cap):
+    # the hub's first chunk alone holds 16 survivors at level 1, so cap 8
+    # and 13 end inside one (row, chunk) mask; found stays uncapped
+    g = _hub_graph(300)
+    cfg = _cfg(g, cap=cap, root_block=512, chunk=16)
+    pats = patterns_by_k(g, 3, per_level=8)
+    for k, ps in pats.items():
+        assert frontier_case(g, ps, cfg, cuda) == 0
+    dg = DeviceGraph.from_host(g, cuda)
+    plans = stack_plans([make_plan(p, g) for p in pats[2]], cuda)
+    emb, cnt = _init_roots(dg, plans, 0, cfg)
+    _, out_count, found, ovf = frontier_expand_level(dg, plans, emb, cnt, 1,
+                                                     cfg)
+    assert bool(ovf.any()) and int(found.max()) > cap
+    assert int(out_count.max()) == cap
+
+
+def test_frontier_max_chunks_truncates_the_hub(cuda):
+    # max_chunks below the hub's 19 chunks: its candidates are cut at
+    # max_chunks · chunk, in the kernel as in the plain version
+    g = _hub_graph(300)
+    cfg = dataclasses.replace(_cfg(g, cap=4096, root_block=512, chunk=16),
+                              max_chunks=3)
+    for k, pats in patterns_by_k(g, 3, per_level=8).items():
+        assert frontier_case(g, pats, cfg, cuda) == 0
+
+
 def test_mis_tau_cut_and_carry(cuda):
     # P = 4: one τ cut mid-table, one never reached, two in between
     assert mis_case(5000, 4, 1024, 3, 3, seed=7, device=cuda,
@@ -162,6 +219,35 @@ def test_mine_defaults_launch_both_kernels(cuda, execution):
 def test_flash_attention_matches_plain(cuda, case):
     # reference test shapes × {f32, bf16}, MQA, window × softcap, the
     # serving shape, hd 128 window + softcap, non-causal, ragged S
+    flash_case(case, cuda)
+
+
+# bf16 on the tensor cores: S not a multiple of the 128-row query tile or
+# the 64-row key tile, every head dim, G = 1, 2, 8, windows that cross a
+# tile edge, softcap with a window, non-causal; and the f32 kernel
+_F32, _BF16 = torch.float32, torch.bfloat16
+FLASH_EDGE_CASES = [
+    *[(f"S{S}-hd{hd}-G{G}-bf16", 1, S, 8, 8 // G, hd, _BF16, True, None, None)
+      for (S, hd, G) in ((100, 16, 1), (1000, 32, 2), (1100, 64, 8),
+                         (100, 128, 2), (1000, 128, 1), (1100, 128, 8),
+                         (1000, 16, 8), (1100, 32, 1), (100, 64, 2),
+                         (1000, 64, 1), (1100, 16, 2), (100, 32, 8))],
+    ("window100-hd64-bf16", 2, 1000, 4, 2, 64, _BF16, True, 100, None),
+    ("window100-softcap30-hd128-bf16", 1, 1100, 8, 2, 128, _BF16, True, 100,
+     30.0),
+    ("window200-softcap20-hd32-bf16", 1, 700, 4, 4, 32, _BF16, True, 200,
+     20.0),
+    ("non-causal-window60-hd128-bf16", 1, 300, 4, 1, 128, _BF16, False, 60,
+     None),
+    ("non-causal-hd16-bf16", 2, 260, 2, 2, 16, _BF16, False, None, None),
+    ("S1100-hd128-G2-f32", 1, 1100, 4, 2, 128, _F32, True, None, None),
+    ("S100-hd16-G8-window30-f32", 1, 100, 8, 1, 16, _F32, True, 30, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES,
+                         ids=[c[0] for c in FLASH_EDGE_CASES])
+def test_flash_attention_edge_cases(cuda, case):
     flash_case(case, cuda)
 
 

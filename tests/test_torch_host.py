@@ -4,6 +4,8 @@ Datasets, candidate generation, canonical keys, matching plans and the
 root-block schedule are numpy in both packages; the port keeps its own
 copies, so each is checked equal to the reference on the same inputs.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from repro_torch.core.graph import build_graph as t_build_graph
 from repro_torch.core.pattern import Pattern as TPattern
 from repro_torch.core.plan import make_plan as t_make_plan
 from repro_torch.data import synthetic as tsyn
+from repro_torch.kernels import _build
 
 PLAN_FIELDS = ("root_label", "root_min_out", "root_min_in", "anchor_pos",
                "anchor_out", "cand_label", "min_out", "min_in", "check_out",
@@ -141,3 +144,22 @@ def test_root_block_order_equal(root_block, mode):
     np.testing.assert_array_equal(
         jplanner.root_block_order(jg, root_block, mode),
         tplanner.root_block_order(tg, root_block, mode))
+
+
+@pytest.mark.parametrize("source", sorted(_build.SOURCES))
+def test_kernel_names_carry_their_source_prefix(source):
+    """Every CUDA kernel of a source is named with the source's prefix, and a
+    profiler's name of it maps back to that source (device time by kernel)."""
+    text = _build.SOURCES[source].read_text()
+    names = re.findall(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(?:void\s+)?(\w+)\s*\(", text)
+    assert names, f"no __global__ function found in {source}"
+    for name in names:
+        assert name.startswith(_build.KERNEL_PREFIX[source]), name
+        key = f"void (anonymous namespace)::{name}<128>(int const*, int)"
+        assert _build.kernel_function(key) == name
+        assert _build.kernel_source(key) == source
+    assert _build.kernel_source(
+        "void at::native::vectorized_elementwise_kernel<4, at::native::"
+        "FillFunctor<int>, std::array<char*, 1ul> >(int, std::array<char*, "
+        "1ul>)") is None
