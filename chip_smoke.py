@@ -15,12 +15,18 @@ line):
                k = 2..5, an edgeless graph, cap overflow and a stacked P > 1
                bucket; greedy mIS with τ cut mid-table, state carried across
                calls, P > 1, a shared-memory bitmap and a global-memory one
-               (n > 1.8 M)); flash attention on the reference's kernel-test
+               (n > 1.8 M), and the adversarial `MIS_EDGE_CASES` — conflict
+               chains, one shared vertex, duplicate vertices in a row, τ
+               cut inside a batch, count ≥ τ at entry, n_valid ≤ 0 and
+               > cap, k = 1 and 16 — each with a shared and a global
+               bitmap); flash attention on the reference's kernel-test
                cases, the qwen3-1.7b shape, hd 128 window + softcap,
                non-causal and ragged S, within `FLASH_TOL` (bf16 2e-2,
                f32 1e-5), each case's max abs error printed; the embedding
                bag (`BAG_CASES`: f32 / bf16, sum / mean, H 1 and 4 with
-               pads, T 1 and 26, weights; exact at H = 1, else `BAG_TOL`)
+               pads and ids ≥ R, T 1, 2, 3 and 26, weights, D 8, 9, 64,
+               72, 128, ragged B·T, a table view one element off its
+               alignment; exact at H = 1, else `BAG_TOL`)
                and the gather-aggregate (`AGG_CASES`: Dmax 1, 15, 40, F 7,
                8, 128, 602, ragged N; `AGG_TOL`);
   4. golden  — the port's mining CLI on cuda for gnutella ×0.1, σ = 20, mis,
@@ -55,11 +61,13 @@ line):
   9. kernels — mining kernels vs plain versions again on real blocks of the
                mico graph at the main path's shapes (the frontier's hub
                block at level 2 also by pass, with its random loads and
-               scratch), the flash kernel at the serve phase's per-layer
-               shape, the embedding bag at serve_bulk's bags and the
-               gather-aggregate at layer 0 of the block, with times (CUDA
-               events), bounds, the library call's time and the launch
-               counts of phases 5–8, as one JSON line;
+               scratch; the mIS kernel's rows tested, passed by its
+               prefilter and decided at the hub block), the flash kernel
+               at the serve phase's per-layer shape, the embedding bag at
+               serve_bulk's bags and the gather-aggregate at layer 0 of
+               the block, with times (CUDA events), bounds, the library
+               call's time and the launch counts of phases 5–8, as one
+               JSON line;
  10. the last line: {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
@@ -237,7 +245,8 @@ def phase_parity(dev) -> dict:
     from repro_torch.data.synthetic import rmat_graph
     from repro_torch.kernels.mis_bitmap.kernel import uses_shared_memory
     from repro_torch.testing.parity import (
-        frontier_case, mis_case, patterns_by_k, random_graph,
+        MIS_EDGE_CASES, frontier_case, mis_case, mis_edge_case, patterns_by_k,
+        random_graph,
     )
 
     worst = {"frontier_expand": 0, "mis_bitmap": 0}
@@ -284,11 +293,17 @@ def phase_parity(dev) -> dict:
     assert uses_shared_memory(bitmap_words(1_000_000), dev)
     mcase(1_000_000, 3, 4096, 3, 3, seed=9, device=dev,
           taus=[INT32_MAX, 100, 2000])           # > 48 KB of shared memory
-    assert not uses_shared_memory(bitmap_words(2_000_000), dev)
+    global_words = bitmap_words(2_000_000)
+    assert not uses_shared_memory(global_words, dev)
     mcase(2_000_000, 3, 4096, 5, 4, seed=10, device=dev,
           taus=[INT32_MAX, 300, 1])              # global-memory bitmap
+    for name in MIS_EDGE_CASES:
+        for words in (0, global_words):
+            worst["mis_bitmap"] = max(worst["mis_bitmap"],
+                                      mis_edge_case(name, dev, words))
     _log("parity: mis_bitmap == plain (exact, tolerance 0) on tau cut, carry, "
-         "P>1, shared (<48 KB, >48 KB) and global bitmaps")
+         "P>1, shared (<48 KB, >48 KB) and global bitmaps, and on "
+         f"{', '.join(MIS_EDGE_CASES)} with shared and global bitmaps")
     return worst
 
 
@@ -855,7 +870,29 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
                                                 k=3), reps=10)
     mis_plain_ms = _time_ms(lambda: mis_greedy_update(bm, cnt, emb, n_valid,
                                                       tau, 3), reps=1)
+    # the kernel's own device time a launch (the events above also hold
+    # the wrapper's host time when it is longer than the kernel's)
+    mis_device_ms = _device_ms_by_kernel(lambda: [
+        mis_bitmap_select(bm, cnt, emb, n_valid, tau, k=3)
+        for _ in range(10)])["mis_greedy_kernel"] / 10
     rows = mis_rows_scanned(emb, n_valid, tau, 3)
+    # per pattern: rows the prefilter tested and passed, rows the decider
+    # examined, the CTA's ns (one more launch, untimed)
+    stats = torch.zeros((P_, 4), dtype=torch.int64, device=dev)
+    mis_bitmap_select(bm, cnt, emb, n_valid, tau, k=3, stats=stats)
+    per = [[nv, *st, c] for nv, st, c in zip(
+        n_valid.tolist(), stats.tolist(), got[1].tolist())]
+    slow = max(per, key=lambda r: r[4])
+    tot = stats.sum(0).tolist()
+    _log(f"kernels: mis_bitmap hub block: ms={mis_ms:.4f} (CUDA events, "
+         f"through the wrapper), kernel device ms={mis_device_ms:.4f} "
+         f"(torch.profiler); rows tested {tot[0]}, passed by the "
+         f"prefilter {tot[1]}, decided {tot[2]} (greedy reads {rows}); "
+         f"slowest pattern: n_valid {slow[0]}, tested {slow[1]}, passed "
+         f"{slow[2]}, decided {slow[3]}, {slow[4]} ns "
+         f"({slow[4] / max(slow[3], 1):.1f} ns a decided row), count {slow[5]}")
+    _log("kernels: mis_bitmap hub block per pattern [n_valid, tested, passed, "
+         "decided, ns, count]: " + json.dumps(per))
     mis_bytes = 2 * P_ * Nw * 4 + rows * 3 * 4 + 5 * P_ * 4
     mis_ops = 4 * 3 * rows
     mis_bound = max(mis_bytes / HBM_BYTES_S, mis_ops / INT32_OPS_S) * 1e3

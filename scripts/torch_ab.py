@@ -7,7 +7,9 @@ unpacked by ``git archive`` into a directory that ``.gitignore`` lists).
 For each, in the order given and each in a process of its own, runs that
 checkout's ``chip_smoke.py`` phases: the build, the mico main run
 (``mine_wall_s`` and the levels' wall), the qwen3-1.7b serve run
-(``ttft_s``, decode step), the flash kernel at the serve shape against SDPA
+(``ttft_s``, decode step), the dlrm-rm2 recsys phase (each shape's
+``forward_ms``; the embedding bag at serve_bulk's bags against its bound
+and ``F.embedding_bag``), the flash kernel at the serve shape against SDPA
 and the mining kernels at the hub block.  Prints one line
 ``AB <dir> {json}`` per checkout, or ``AB <dir> FAILED``, and exits 1 if any
 failed.  Alternate the checkouts (A B B A) so that a drift of the card's
@@ -19,7 +21,7 @@ import subprocess
 import sys
 
 CODE = r'''
-import json, sys, time, torch
+import contextlib, io, json, re, sys, time, torch
 from pathlib import Path
 sys.path[:0] = [".", "src"]
 import chip_smoke as cs
@@ -30,6 +32,12 @@ t0 = time.monotonic(); cs.phase_main(out, cs.MICO_SIGMA); wall = time.monotonic(
 mico = json.loads((out / "smoke_mico.json").read_text())
 cs.phase_serve(out)
 serve = json.loads((out / "smoke_serve.json").read_text())
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    _, bag = cs.phase_recsys(dev)
+sys.stdout.write(log.getvalue())
+forward_ms = {m.group(1): float(m.group(2)) for m in re.finditer(
+    r"recsys: (\w+) batch=\d+ forward_ms=([\d.]+)", log.getvalue())}
 f = cs.phase_flash_kernel(dev)
 rows = cs.phase_kernels(dev, {"frontier_expand": 0, "mis_bitmap": 0},
                         {"frontier_expand": 0, "mis_bitmap": 0}, cs.MICO_SIGMA)
@@ -39,7 +47,9 @@ print("RESULT " + json.dumps({
     "n_frequent": mico["n_frequent"], "ttft_s": serve["ttft_s"],
     "decode_step_ms_median": serve["decode_step_ms_median"],
     "flash_ms": f["ms"], "sdpa_ms": f["library_ms"], "flash_err": f["max_abs_err"],
-    "frontier_ms": rows[0]["ms"], "mis_ms": rows[1]["ms"]}))
+    "frontier_ms": rows[0]["ms"], "mis_ms": rows[1]["ms"],
+    "bag_ms": bag["ms"], "bag_bound_ms": bag["bound_ms"],
+    "embedding_bag_lib_ms": bag["library_ms"], "recsys_forward_ms": forward_ms}))
 '''
 
 

@@ -24,6 +24,7 @@ import torch
 from ..core.graph import DataGraph
 from ..data.sampler import NeighborSampler
 from ..data.synthetic import rmat_undirected_graph
+from ..device import resolve_device
 from ..models.gnn.common import GraphBatch
 from .base import ShapeCell, TensorSpec
 
@@ -80,8 +81,10 @@ class GNNArch:
         return self._build(shape, reduced)[0]
 
     def init(self, shape: str, generator: torch.Generator, *,
-             reduced: bool = False, device=None):
-        return self._build(shape, reduced)[1](generator, device)
+             reduced: bool = False, device="cuda"):
+        """The model on ``device`` (raises for CUDA without a card)."""
+        init_fn = self._build(shape, reduced)[1]
+        return init_fn(generator, resolve_device(device))
 
     # ---- inputs ------------------------------------------------------------
     @staticmethod
@@ -102,9 +105,11 @@ class GNNArch:
                 "graph_ids": TensorSpec((N,), torch.int32),
                 "targets": TensorSpec((N,), torch.int32)}
 
-    def reduced_inputs(self, shape: str, device=None) -> GraphBatch:
-        """The reference's ``reduced_inputs`` batch, draw for draw."""
+    def reduced_inputs(self, shape: str, device="cuda") -> GraphBatch:
+        """The reference's ``reduced_inputs`` batch, draw for draw, on
+        ``device``."""
         self._ported(shape)
+        device = resolve_device(device)
         meta = self.meta(shape, reduced=True)
         r = np.random.default_rng(0)
         N, E = meta["n_nodes"], meta["n_edges"]
@@ -131,11 +136,12 @@ class GNNArch:
         m = meta["graph_edges"] if n_edges is None else n_edges
         return rmat_undirected_graph(meta["graph_nodes"], m, seed=seed)
 
-    def node_data(self, shape: str, n: int, *, seed: int = 0, device=None
+    def node_data(self, shape: str, n: int, *, seed: int = 0, device="cuda"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(n, d_feat) f32 normal features and (n,) int32 class labels,
         drawn on ``device`` from a generator seeded with ``seed``."""
         meta = self.meta(shape)
+        device = resolve_device(device)
         g = torch.Generator(device=device).manual_seed(seed)
         x = torch.randn((n, meta["d_feat"]), generator=g, device=device)
         y = torch.randint(0, meta["n_out"], (n,), generator=g, device=device,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..data.synthetic import dlrm_batches
+from ..device import resolve_device
 from ..models.dlrm import DLRM, DLRMConfig, dlrm_apply, dlrm_init, retrieval_score
 from .base import ShapeCell, TensorSpec
 
@@ -64,8 +65,10 @@ class RecsysArch:
         return self.reduced_cfg if reduced else self.cfg
 
     def init(self, generator: torch.Generator, *, reduced: bool = False,
-             device=None) -> DLRM:
-        return dlrm_init(self.config(reduced), generator, device=device)
+             device="cuda") -> DLRM:
+        """The model on ``device`` (raises for CUDA without a card)."""
+        return dlrm_init(self.config(reduced), generator,
+                         device=resolve_device(device))
 
     # ---- inputs ------------------------------------------------------------
     def batch(self, shape: str, reduced: bool = False) -> int:
@@ -96,9 +99,11 @@ class RecsysArch:
         return specs
 
     def inputs(self, shape: str, *, reduced: bool = False, seed: int = 0,
-               step: int = 0, device=None) -> Dict[str, torch.Tensor]:
-        """One step's inputs: `dlrm_batches` at ``step`` (the reference's
-        draws), candidates as f32 normals from ``(seed, step, 1)``."""
+               step: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+        """One step's inputs on ``device``: `dlrm_batches` at ``step`` (the
+        reference's draws), candidates as f32 normals from ``(seed, step,
+        1)``."""
+        device = resolve_device(device)
         cfg = self.config(reduced)
         specs = self.input_specs(shape, reduced=reduced)
         batch = next(dlrm_batches(cfg, self.batch(shape, reduced), seed=seed,

@@ -1,9 +1,12 @@
 """Binding of the embedding-bag CUDA kernel (``csrc/embedding_bag.cu``).
 
 Replaces the TPU kernel ``_bag_kernel`` / ``embedding_bag_pallas`` of
-``src/repro/kernels/embedding_bag/kernel.py``: one warp per (bag, table)
-reads the bag's rows and reduces them in f32.  The library is built on
-first use (`repro_torch.kernels._build`).
+``src/repro/kernels/embedding_bag/kernel.py``: a persistent grid of warps,
+each serving several bags at once with 16-byte row loads, reduces each
+bag's rows in f32.  Rows that 16-byte loads cannot take (D not a multiple
+of 16 bytes, or a table view that is not 16-byte aligned) go to the same
+source's narrow kernel, one warp a bag; `load_bytes` picks the path before
+the launch.  The library is built on first use (`repro_torch.kernels._build`).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ def _lib():
     lib = load_library("embedding_bag")
     if lib.embedding_bag_launch.argtypes is None:
         lib.embedding_bag_launch.argtypes = [_P, _P, _P, _P, _L, _I, _L, _I,
-                                             _I, _I, _I, _P]
+                                             _I, _I, _I, _I, _P]
         lib.embedding_bag_launch.restype = _I
     return lib
 
@@ -37,6 +40,18 @@ def _check(name: str, t: torch.Tensor, dtypes, shape, align: int) -> None:
             f"{name}: need a contiguous CUDA tensor of dtype {list(dtypes)}, "
             f"shape {tuple(shape)}, {align}-byte aligned; got {t.dtype} "
             f"{tuple(t.shape)} on {t.device}")
+
+
+def load_bytes(tables: torch.Tensor, out: torch.Tensor) -> int:
+    """Bytes a lane loads at a time: 16 where D·size and both pointers
+    allow it, else two elements where they allow that, else one."""
+    es = tables.element_size()
+    row = tables.shape[-1] * es
+    for nbytes in (16, 2 * es):
+        if row % nbytes == 0 and tables.data_ptr() % nbytes == 0 \
+                and out.data_ptr() % nbytes == 0:
+            return nbytes
+    return es
 
 
 def embedding_bag_tbh(tables: torch.Tensor, ids: torch.Tensor,
@@ -52,8 +67,7 @@ def embedding_bag_tbh(tables: torch.Tensor, ids: torch.Tensor,
     B, T2, H = ids.shape
     if T2 != T:
         raise ValueError(f"ids name {T2} tables, the stack holds {T}")
-    pair = 2 * tables.element_size() if D % 2 == 0 else tables.element_size()
-    _check("tables", tables, DTYPES, (T, R, D), pair)
+    _check("tables", tables, DTYPES, (T, R, D), tables.element_size())
     _check("ids", ids, (torch.int32,), (B, T, H), 4)
     if weights is not None:
         _check("weights", weights, (tables.dtype,), (B, T, H), 1)
@@ -67,7 +81,8 @@ def embedding_bag_tbh(tables: torch.Tensor, ids: torch.Tensor,
         err = lib.embedding_bag_launch(
             tables.data_ptr(), ids.data_ptr(),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
-            B * T, T, R, D, H, DTYPES[tables.dtype], int(mean), stream)
+            B * T, T, R, D, H, DTYPES[tables.dtype], int(mean),
+            load_bytes(tables, out), stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {err}")
     embedding_bag_tbh.launches += 1

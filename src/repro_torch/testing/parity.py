@@ -33,6 +33,7 @@ from ..kernels.gather_aggregate.ref import gather_aggregate_ref
 from ..kernels.mis_bitmap.kernel import mis_bitmap_select
 
 __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
+           "MIS_EDGE_CASES", "mis_edge_inputs", "mis_edge_case",
            "max_abs_diff", "frontier_work", "mis_rows_scanned",
            "FLASH_CASES", "FLASH_TOL", "flash_inputs", "flash_case",
            "BAG_CASES", "BAG_TOL", "bag_case", "AGG_CASES", "AGG_TOL",
@@ -126,6 +127,125 @@ def mis_case(n: int, P: int, cap: int, K: int, k: int, seed: int, device,
                     f"differs by {d}")
             worst = max(worst, d)
     return worst
+
+
+INT32_MAX = 2**31 - 1
+# Adversarial greedy-mIS inputs (`mis_edge_inputs`): conflict chains
+# thousands of rows long, every row on one vertex, duplicate vertices in a
+# row (−1 among a valid row's first k columns, whole rows of −1), τ cuts
+# that fall inside a batch of 32 rows, count ≥ τ at entry, n_valid ≤ 0 and
+# > cap, k = 1 and k = 16.
+MIS_EDGE_CASES = ["chain", "one-vertex", "duplicates", "tau-in-batch",
+                  "count-at-tau", "n-valid-edges", "k1", "k16"]
+
+
+def _distinct_rows(rng, rows: int, n: int, k: int) -> np.ndarray:
+    """``rows`` rows of k distinct vertices of [0, n)."""
+    return np.stack([rng.choice(n, k, replace=False) for _ in range(rows)])
+
+
+def mis_edge_inputs(name: str, seed: int = 0) -> dict:
+    """One of `MIS_EDGE_CASES` as numpy arrays: ``n``, ``k``, ``emb`` (P,
+    cap, K) int32 (−1 past n_valid and past column k), ``n_valid``,
+    ``tau``, ``count`` (P,) int32, ``bitmap`` (P, ⌈n/32⌉) int32 words and
+    ``distinct`` (every valid row holds k distinct vertices, as the
+    reference's scan assumes)."""
+    rng = np.random.default_rng(seed)
+    distinct = True
+    bits = {}
+    if name == "chain":
+        # row i shares a vertex with rows i − 1 and i + 1; pattern 1 walks
+        # the chain backwards
+        k, K, cap = 2, 3, 6144
+        n = cap + 1
+        i = np.arange(cap)
+        emb = np.full((2, cap, K), -1, np.int32)
+        emb[0, :, 0], emb[0, :, 1] = i, i + 1
+        emb[1, :, 0], emb[1, :, 1] = cap - i, cap - 1 - i
+        nv, tau, cnt = [cap, cap - 7], [INT32_MAX, 1000], [0, 0]
+    elif name == "one-vertex":
+        # every row holds vertex 7, in a random column
+        k, K, cap, n = 3, 3, 4096, 5000
+        emb = np.zeros((3, cap, K), np.int32)
+        for p in range(3):
+            others = _distinct_rows(rng, cap, n - 8, 2) + 8
+            emb[p] = np.concatenate([np.full((cap, 1), 7), others], 1)
+            emb[p] = np.take_along_axis(
+                emb[p], np.argsort(rng.random((cap, K)), 1), 1)
+        nv, tau, cnt = [cap, cap, 3000], [INT32_MAX, 1, INT32_MAX], [0, 0, 5]
+        bits[2] = [7]
+    elif name == "duplicates":
+        # vertices drawn with replacement from a small window, 15 % of the
+        # first k columns −1 (clipped to 0), some valid rows all −1
+        distinct = False
+        k, K, cap, n = 4, 5, 2048, 300
+        emb = np.full((3, cap, K), -1, np.int32)
+        emb[:, :, :k] = rng.integers(0, n, (3, cap, k))
+        emb[:, :, :k][rng.random((3, cap, k)) < 0.15] = -1
+        emb[:, rng.integers(0, cap, 40), :k] = -1
+        nv, tau, cnt = [cap, 1500, 2000], [INT32_MAX, 10, INT32_MAX], [0, 0, 0]
+    elif name == "tau-in-batch":
+        # rows of a large graph hardly collide: the τ-th take falls inside
+        # a batch of 32 rows
+        k, K, cap, n = 3, 3, 1024, 200_000
+        emb = np.stack([_distinct_rows(rng, cap, n, k) for _ in range(6)]
+                       ).astype(np.int32)
+        nv = [cap] * 6
+        tau, cnt = [1, 17, 31, 32, 33, 95], [0, 0, 0, 0, 0, 3]
+    elif name == "count-at-tau":
+        k, K, cap, n = 3, 3, 512, 1000
+        emb = np.stack([_distinct_rows(rng, cap, n, k) for _ in range(4)]
+                       ).astype(np.int32)
+        nv, tau, cnt = [cap] * 4, [5, 3, 0, -1], [5, 9, 0, 2]
+    elif name == "n-valid-edges":
+        k, K, cap, n = 3, 3, 512, 1000
+        emb = np.stack([_distinct_rows(rng, cap, n, k) for _ in range(4)]
+                       ).astype(np.int32)
+        nv, tau, cnt = [0, -5, cap + 100, INT32_MAX], [INT32_MAX] * 4, [0] * 4
+    elif name == "k1":
+        k, K, cap, n = 1, 1, 2048, 500
+        emb = rng.integers(0, n, (2, cap, K)).astype(np.int32)
+        nv, tau, cnt = [cap, 2000], [INT32_MAX, 100], [0, 0]
+    elif name == "k16":
+        k, K, cap, n = 16, 16, 1024, 3000
+        emb = np.stack([_distinct_rows(rng, cap, n, k) for _ in range(2)]
+                       ).astype(np.int32)
+        nv, tau, cnt = [cap, 1000], [INT32_MAX, 20], [0, 0]
+    else:
+        raise ValueError(f"unknown mIS edge case {name!r}")
+    P, cap = emb.shape[:2]
+    for p in range(P):
+        emb[p, max(min(nv[p], cap), 0):] = -1
+    words = np.zeros((P, bitmap_words(n)), np.uint32)
+    for p, vs in bits.items():
+        for v in vs:
+            words[p, v >> 5] |= np.uint32(1 << (v & 31))
+    i32 = lambda a: np.asarray(a, np.int64).astype(np.int32)
+    return {"n": n, "k": k, "emb": emb.astype(np.int32), "n_valid": i32(nv),
+            "tau": i32(tau), "count": i32(cnt), "bitmap": words.view(np.int32),
+            "distinct": distinct}
+
+
+def mis_edge_case(name: str, device, words: int = 0) -> int:
+    """Greedy mIS kernel vs plain version on `mis_edge_inputs(name)`, the
+    bitmap widened to ``words`` words if that is more (a global-memory
+    bitmap above the shared-memory limit).  Returns the max abs
+    difference (0)."""
+    c = mis_edge_inputs(name)
+    bm = np.zeros((c["bitmap"].shape[0], max(words, c["bitmap"].shape[1])),
+                  np.int32)
+    bm[:, :c["bitmap"].shape[1]] = c["bitmap"]
+    args = [torch.as_tensor(a, device=device)
+            for a in (bm, c["count"], c["emb"], c["n_valid"], c["tau"])]
+    got = mis_bitmap_select(*args, k=c["k"])
+    want = mis_greedy_update(*args, c["k"])
+    torch.cuda.synchronize()
+    for what, a, b in (("bitmap", got[0], want[0]), ("count", got[1], want[1])):
+        d = max_abs_diff(a, b)
+        if d:
+            raise AssertionError(f"mis_bitmap edge case {name} ({bm.shape[1]} "
+                                 f"words): {what} differs by {d}")
+    return 0
 
 
 def frontier_work(g: DeviceGraph, plans, emb, count, level: int,
@@ -263,37 +383,63 @@ def _close_or_raise(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-# embedding bag: (name, T, R, D, B, H, dtype, mean, weighted).  Ids are
-# drawn from [-1, R), so bags hold pads; H = 1 and H = 4, one table and
-# DLRM's 26, both combiners, with and without weights, an odd D (one
-# column per lane) and DLRM's D = 64.
+# embedding bag: (name, T, R, D, B, H, dtype, mean, weighted, over,
+# offset).  Ids are drawn from [-1, R), or from [-1, R + R/4) where
+# ``over`` (ids ≥ R are skipped like pads), so bags hold pads; H = 1 and
+# H = 4, one table, three and DLRM's 26, both combiners, with and without
+# weights; DLRM's D = 64 and D = 8, 72, 128 on the 16-byte path (one, nine
+# and sixteen 16-byte chunks in bf16), an odd D = 9 on the narrow path; B·T
+# of 183 and 1 586, not a multiple of the bags a warp serves at once; and
+# the tables as a view ``offset`` elements into their storage, which is
+# not 16-byte aligned and takes the narrow path.
+def _bag(T, D, B, H, dt, mean, w, over=False, offset=0):
+    return (f"T{T}-H{H}-D{D}{f'-B{B}' if B != 64 else ''}-{str(dt)[6:]}-"
+            f"{'mean' if mean else 'sum'}"
+            f"{'-weighted' if w else ''}{'-over' if over else ''}"
+            f"{f'-offset{offset}' if offset else ''}",
+            T, 1000, D, B, H, dt, mean, w, over, offset)
+
+
 BAG_CASES = [
-    (f"T{T}-H{H}-D{D}-{str(dt)[6:]}-{'mean' if mean else 'sum'}"
-     f"{'-weighted' if w else ''}", T, 1000, D, 64, H, dt, mean, w)
-    for T in (1, 26) for H in (1, 4) for dt in (_F32, _BF16)
-    for mean in (False, True) for w in (False, True) for D in (64, 9)
-    if D == 64 or (T == 1 and not w)
+    *[_bag(T, D, 64, H, dt, mean, w)
+      for T in (1, 26) for H in (1, 4) for dt in (_F32, _BF16)
+      for mean in (False, True) for w in (False, True) for D in (64, 9)
+      if D == 64 or (T == 1 and not w)],
+    *[c for D in (8, 72, 128) for dt in (_F32, _BF16)
+      for c in (_bag(3, D, 61, 1, dt, False, False),
+                _bag(3, D, 61, 4, dt, True, True, over=True))],
+    *[_bag(26, 64, 61, 4, dt, False, True, over=True) for dt in (_F32, _BF16)],
+    *[_bag(3, 9, 61, 4, dt, True, False, over=True) for dt in (_F32, _BF16)],
+    *[_bag(2, 64, 61, H, dt, False, H == 4, offset=1)
+      for H in (1, 4) for dt in (_F32, _BF16)],
 ]
 # bf16: the output's rounding; f32: summation order; one id per bag: exact
 BAG_TOL = {_F32: 1e-6, _BF16: 2e-2}
 
 
-def bag_inputs(T, R, D, B, H, dtype, weighted, device, seed=0):
-    """tables (T, R, D) N(0, 1), ids (B, T, H) in [-1, R), weights
-    (B, T, H) N(0, 1) or None, from a numpy seed."""
+def bag_inputs(T, R, D, B, H, dtype, weighted, device, seed=0, over=False,
+               offset=0):
+    """tables (T, R, D) N(0, 1), a view ``offset`` elements into its
+    storage; ids (B, T, H) in [-1, R) (in [-1, R + R/4) where ``over``);
+    weights (B, T, H) N(0, 1) or None; from a numpy seed."""
     rng = np.random.default_rng(seed)
     tables = torch.as_tensor(rng.normal(size=(T, R, D)), dtype=torch.float32)
-    ids = torch.as_tensor(rng.integers(-1, R, (B, T, H)), dtype=torch.int32)
+    hi = R + R // 4 if over else R
+    ids = torch.as_tensor(rng.integers(-1, hi, (B, T, H)), dtype=torch.int32)
     w = (torch.as_tensor(rng.normal(size=(B, T, H)), dtype=torch.float32)
          .to(device=device, dtype=dtype) if weighted else None)
-    return tables.to(device=device, dtype=dtype), ids.to(device), w
+    store = torch.empty(offset + T * R * D, dtype=dtype, device=device)
+    view = store[offset:].view(T, R, D)
+    view.copy_(tables)
+    return view, ids.to(device), w
 
 
 def bag_case(case, device, seed=0) -> float:
     """`embedding_bag` against its plain version on ``device``; returns the
     largest absolute difference, raises past `BAG_TOL` (zero at H = 1)."""
-    name, T, R, D, B, H, dtype, mean, weighted = case
-    tables, ids, w = bag_inputs(T, R, D, B, H, dtype, weighted, device, seed)
+    name, T, R, D, B, H, dtype, mean, weighted, over, offset = case
+    tables, ids, w = bag_inputs(T, R, D, B, H, dtype, weighted, device, seed,
+                                over, offset)
     combiner = "mean" if mean else "sum"
     got = embedding_bag(tables, ids, w, combiner=combiner)
     want = embedding_bag_ref(tables, ids, w, mean=mean)

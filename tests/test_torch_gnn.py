@@ -198,7 +198,8 @@ def _assert_logits_close(got: torch.Tensor, want) -> None:
 def test_sage_reduced_matches_reference():
     jcfg, params, jloss, model = _sage_pair()
     gb_j = j_sage_cfg.ARCH.reduced_inputs("minibatch_lg", None)["batch"]
-    gb_t = get_arch("graphsage-reddit").reduced_inputs("minibatch_lg")
+    gb_t = get_arch("graphsage-reddit").reduced_inputs("minibatch_lg",
+                                                      device="cpu")
     for f in ("x", "edge_src", "edge_dst", "edge_mask", "node_mask",
               "graph_ids", "targets"):
         np.testing.assert_array_equal(getattr(gb_t, f).numpy(),
@@ -300,7 +301,7 @@ def test_minibatch_sampler_caps_match_the_shape():
     s = arch.sampler(tg)
     assert (s.fanout, s.batch) == (meta["fanout"], meta["seeds"])
     assert (s.node_cap, s.edge_cap) == (meta["n_nodes"], meta["n_edges"])
-    x, y = arch.node_data("minibatch_lg", 50, seed=0)
+    x, y = arch.node_data("minibatch_lg", 50, seed=0, device="cpu")
     assert x.shape == (50, 602) and x.dtype == torch.float32
     assert y.dtype == torch.int32 and 0 <= int(y.min()) and int(y.max()) < 41
 

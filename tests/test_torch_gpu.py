@@ -35,8 +35,9 @@ from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
 from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
 from repro_torch.models.gnn.graphsage import sage_apply
 from repro_torch.testing.parity import (
-    AGG_CASES, BAG_CASES, FLASH_CASES, agg_case, bag_case, flash_case,
-    frontier_case, mis_case, patterns_by_k, random_graph,
+    AGG_CASES, BAG_CASES, FLASH_CASES, MIS_EDGE_CASES, agg_case, bag_case,
+    flash_case, frontier_case, mis_case, mis_edge_case, patterns_by_k,
+    random_graph,
 )
 
 pytestmark = pytest.mark.gpu
@@ -186,6 +187,37 @@ def test_mis_shared_bitmap_above_48k(cuda):
                     taus=[INT32_MAX, 100, 2000], calls=2) == 0
 
 
+# a bitmap of 2 M vertices' words lies above the shared-memory limit
+GLOBAL_WORDS = bitmap_words(2_000_000)
+
+
+@pytest.mark.parametrize("bitmap", ["shared", "global"])
+@pytest.mark.parametrize("name", MIS_EDGE_CASES)
+def test_mis_edge_cases(cuda, name, bitmap):
+    words = GLOBAL_WORDS if bitmap == "global" else 0
+    assert not uses_shared_memory(GLOBAL_WORDS, cuda)
+    assert mis_edge_case(name, cuda, words) == 0
+
+
+def test_mis_stats_count_rows(cuda):
+    # the optional per-pattern stats: rows tested, passed, decided, ns
+    n, P, cap, k = 5000, 3, 4096, 3
+    rng = np.random.default_rng(3)
+    emb = torch.as_tensor(rng.integers(0, n, (P, cap, k)).astype(np.int32),
+                          device=cuda)
+    nv = torch.tensor([cap, 1000, 0], dtype=torch.int32, device=cuda)
+    tau = torch.full((P,), INT32_MAX, dtype=torch.int32, device=cuda)
+    stats = torch.zeros((P, 4), dtype=torch.int64, device=cuda)
+    mis_bitmap_select(torch.zeros((P, bitmap_words(n)), dtype=torch.int32,
+                                  device=cuda),
+                      torch.zeros(P, dtype=torch.int32, device=cuda), emb, nv,
+                      tau, k=k, stats=stats)
+    st = stats.cpu()
+    assert st[:, 0].tolist() == [cap, 1000, 0]
+    assert (st[:, 1] <= st[:, 0]).all() and (st[:, 2] <= st[:, 1]).all()
+    assert st[2].tolist()[:3] == [0, 0, 0] and (st[:2, 3] > 0).all()
+
+
 @pytest.mark.parametrize("metric", ["mis", "mis_luby", "mni", "frac"])
 def test_mine_cuda_equals_cpu(cuda, metric):
     g = random_graph(400, 3, 3, seed=17)
@@ -323,9 +355,10 @@ def test_bag_and_aggregate_kernels_reject_bad_inputs(cuda):
 @pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
 def test_reduced_dlrm_cuda_matches_cpu(cuda, shape):
     arch = get_arch("dlrm-rm2")
-    cpu_model = arch.init(torch.Generator().manual_seed(0), reduced=True)
+    cpu_model = arch.init(torch.Generator().manual_seed(0), reduced=True,
+                          device="cpu")
     cuda_model = copy.deepcopy(cpu_model).to(cuda)
-    x = arch.inputs(shape, reduced=True, seed=1)
+    x = arch.inputs(shape, reduced=True, seed=1, device="cpu")
     step = arch.step_fn(shape)
     args = [x["dense"], x["sparse_idx"]] + (
         [x["candidates"]] if "candidates" in x else [])
@@ -347,9 +380,9 @@ def test_reduced_dlrm_cuda_matches_cpu(cuda, shape):
 def test_reduced_sage_cuda_matches_cpu(cuda):
     arch = get_arch("graphsage-reddit")
     cpu_model = arch.init("minibatch_lg", torch.Generator().manual_seed(0),
-                          reduced=True)
+                          reduced=True, device="cpu")
     cuda_model = copy.deepcopy(cpu_model).to(cuda)
-    gb = arch.reduced_inputs("minibatch_lg")
+    gb = arch.reduced_inputs("minibatch_lg", device="cpu")
     gb_cuda = arch.reduced_inputs("minibatch_lg", device=cuda)
     want = sage_apply(cpu_model, gb)
     before = gather_aggregate_nf.launches

@@ -4,8 +4,11 @@ Bitmaps cross between the packages through `repro_torch.interop` (the
 reference's uint32 words ↔ the port's int32 words, same bits).  Greedy:
 bitmap and count equal to ``repro.core.mis.mis_greedy_update`` and to the
 reference's Pallas kernel in interpret mode, with τ cut mid-table, state
-carried across calls and a stacked pattern axis.  Luby: count equal, and
-the whole set (bitmap) equal when run to completion.
+carried across calls and a stacked pattern axis; and on the adversarial
+cases the card tests hold the kernel to (`parity.MIS_EDGE_CASES`: long
+conflict chains, one shared vertex, duplicate vertices in a row, τ cut
+inside a batch, count ≥ τ at entry, n_valid ≤ 0 and > cap, k = 1 and 16).
+Luby: count equal, and the whole set (bitmap) equal when run to completion.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +21,7 @@ from repro.kernels.mis_bitmap.kernel import mis_bitmap_select as j_pallas_mis
 from repro_torch import interop
 from repro_torch.core import mis as tmis
 from repro_torch.kernels.mis_bitmap.ops import mis_greedy_update_kernel
+from repro_torch.testing.parity import MIS_EDGE_CASES, mis_edge_inputs
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -93,6 +97,34 @@ def test_greedy_equals_pallas_interpret(seed):
         np.testing.assert_array_equal(np.asarray(b),
                                       interop.bitmap_to_uint32(t_bm[p]))
         assert int(c) == int(t_cnt[p])
+
+
+@pytest.mark.parametrize("name", MIS_EDGE_CASES)
+def test_greedy_edge_cases_equal_reference(name):
+    """Bit for bit against the reference's Pallas kernel in interpret mode
+    (it ORs each vertex's bit in turn) and, where every row holds distinct
+    vertices, against its ``lax.scan`` (whose add-as-OR assumes them)."""
+    c = mis_edge_inputs(name)
+    k = c["k"]
+    t_bm, t_cnt = mis_greedy_update_kernel(
+        *(torch.as_tensor(c[f]) for f in ("bitmap", "count", "emb", "n_valid",
+                                          "tau")), k)
+    t_bm = interop.bitmap_to_uint32(t_bm)
+    for p in range(c["emb"].shape[0]):
+        args = (jnp.asarray(c["bitmap"][p].view(np.uint32)),
+                jnp.int32(c["count"][p]), jnp.asarray(c["emb"][p]),
+                jnp.int32(c["n_valid"][p]), jnp.int32(c["tau"][p]))
+        b, n = j_pallas_mis(*args, k=k, block_rows=256, interpret=True)
+        np.testing.assert_array_equal(np.asarray(b), t_bm[p])
+        assert int(n) == int(t_cnt[p])
+        if c["distinct"]:
+            b, n = jmis.mis_greedy_update(*args, k)
+            np.testing.assert_array_equal(np.asarray(b), t_bm[p])
+            assert int(n) == int(t_cnt[p])
+    if name == "one-vertex":       # one take, none past the preset bit
+        assert t_cnt.tolist() == [1, 1, 5]
+    if name == "tau-in-batch":
+        assert t_cnt.tolist() == c["tau"].tolist()
 
 
 @pytest.mark.parametrize("seed,taus", [

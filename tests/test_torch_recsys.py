@@ -40,6 +40,7 @@ from repro_torch import interop
 from repro_torch.configs import recsys as t_recsys
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.synthetic import dlrm_batches as t_batches
+from repro_torch.kernels.embedding_bag.kernel import load_bytes
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.models import dlrm as t_dlrm
 from repro_torch.models.embedding import embedding_bag_apply, embedding_bag_init
@@ -111,6 +112,21 @@ def test_stacked_tables_equal_one_table_at_a_time():
             one = embedding_bag(tables[t], ids[:, t], w[:, t],
                                 combiner=combiner)
             assert torch.equal(stacked[:, t], one)
+
+
+@pytest.mark.parametrize("dtype,D,offset,want", [
+    ("bfloat16", 64, 0, 16), ("float32", 64, 0, 16), ("bfloat16", 8, 0, 16),
+    ("bfloat16", 72, 0, 16), ("float32", 9, 0, 4), ("bfloat16", 10, 0, 4),
+    ("bfloat16", 64, 1, 2), ("float32", 64, 1, 4), ("float32", 64, 2, 8),
+])
+def test_bag_kernel_path_follows_shape_and_alignment(dtype, D, offset, want):
+    """The bytes a lane of the CUDA kernel loads at a time, picked before
+    the launch: 16 where D·size and the pointers allow it, else a pair of
+    elements, else one (a table view offset by one element)."""
+    store = torch.zeros(offset + 3 * 10 * D, dtype=TDT[dtype])
+    tables = store[offset:].view(3, 10, D)
+    out = torch.empty((4, 3, D), dtype=TDT[dtype])
+    assert load_bytes(tables, out) == want
 
 
 def test_embedding_bag_init_shape_and_scale():
@@ -200,7 +216,8 @@ def test_dlrm_loss_matches_reference():
 def test_retrieval_score_matches_reference():
     params, model = _reduced_model(seed=2)
     t_arch = get_arch("dlrm-rm2")
-    inputs = t_arch.inputs("retrieval_cand", reduced=True, seed=3)
+    inputs = t_arch.inputs("retrieval_cand", reduced=True, seed=3,
+                           device="cpu")
     assert inputs["candidates"].shape == (10240, 16)
     ws, wi = j_dlrm.retrieval_score(
         params, j_recsys.REDUCED, jnp.asarray(inputs["dense"].numpy()),
@@ -269,3 +286,45 @@ def test_new_modules_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _generator() -> torch.Generator:
+    return torch.Generator(device="cuda" if torch.cuda.is_available()
+                           else "cpu").manual_seed(0)
+
+
+# The recsys and GNN entry points, each called without a device.
+ENTRY_POINTS = {
+    "recsys.init": lambda: get_arch("dlrm-rm2").init(_generator(),
+                                                     reduced=True),
+    "recsys.inputs": lambda: get_arch("dlrm-rm2").inputs("serve_p99",
+                                                         reduced=True),
+    "gnn.init": lambda: get_arch("graphsage-reddit").init(
+        "minibatch_lg", _generator(), reduced=True),
+    "gnn.reduced_inputs": lambda: get_arch("graphsage-reddit").reduced_inputs(
+        "minibatch_lg"),
+    "gnn.node_data": lambda: get_arch("graphsage-reddit").node_data(
+        "minibatch_lg", 50),
+}
+
+
+def _tensors(out) -> list:
+    if isinstance(out, torch.nn.Module):
+        return list(out.parameters()) + list(out.buffers())
+    if isinstance(out, dict):
+        return list(out.values())
+    if isinstance(out, tuple):
+        return list(out)
+    return [v for v in vars(out).values() if isinstance(v, torch.Tensor)]
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_runs_on_the_card_by_default(name):
+    """Without a device an entry point runs on CUDA: without a card it
+    raises, and it never hands back CPU tensors."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ENTRY_POINTS[name]()
+        return
+    tensors = _tensors(ENTRY_POINTS[name]())
+    assert tensors and all(t.device.type == "cuda" for t in tensors)
