@@ -19,7 +19,8 @@ line):
                chains, one shared vertex, duplicate vertices in a row, τ
                cut inside a batch, count ≥ τ at entry, n_valid ≤ 0 and
                > cap, k = 1 and 16 — each with a shared and a global
-               bitmap); flash attention on the reference's kernel-test
+               bitmap; the frontier also at the planner's floor cap
+               of 1 024, the smallest cap ``auto`` derives); flash attention on the reference's kernel-test
                cases, the qwen3-1.7b shape, hd 128 window + softcap,
                non-causal and ragged S, within `FLASH_TOL` (bf16 2e-2,
                f32 1e-5), each case's max abs error printed; the embedding
@@ -30,11 +31,27 @@ line):
                and the gather-aggregate (`AGG_CASES`: Dmax 1, 15, 40, F 7,
                8, 128, 602, ragged N; `AGG_TOL`);
   4. golden  — the port's mining CLI on cuda for gnutella ×0.1, σ = 20, mis,
-               batched, equal to the reference CLI's committed --json;
+               batched, equal to the reference CLI's committed --json; then
+               the same flags under ``--execution auto`` (the planner at
+               its built-in H100 calibration), whose frequent set must be
+               the golden's;
   5. main    — the mining CLI on cuda at paper size (mico ×1.0: 100 000
                vertices, 1 080 298 edges, 29 labels), mis, batched, max
                size 3; launch counts are zeroed just before and read just
                after;
+  5a. auto   — the same run under the CLI's default ``--execution auto``:
+               the reference's default command; its frequent set and
+               supports (and per-level counts) must equal phase 5's; the
+               plan of each level is printed;
+  5b. sampled — the same run under ``--execution sampled --sample-fraction
+               0.25`` with escalation: the same frequent set and exact
+               supports, at least one escalated block replayed from the
+               sample pass's records (``counters["replay_blocks"]``) with
+               the mis_bitmap kernel launched on those replays; prints the
+               records' bytes and the process's peak host memory.  Both
+               phases zero the launch counts just before and read them
+               just after, and write their calibration files under
+               ``build/smoke/``;
   6. serve   — the serving CLI on cuda: qwen3-1.7b at full width and depth
                (28 layers, random weights from seed 0), batch 4, a 1 024-token
                prompt prefilled into the KV cache, 32 new tokens decoded
@@ -66,7 +83,8 @@ line):
                at the serve phase's per-layer shape, the embedding bag at
                serve_bulk's bags and the gather-aggregate at layer 0 of
                the block, with times (CUDA events), bounds, the library
-               call's time and the launch counts of phases 5–8, as one
+               call's time and the launch counts of phases 5a (the mining
+               kernels: the reference's default command) and 6–8, as one
                JSON line;
  10. the last line: {"ok": true, "device": {...}}.
 
@@ -76,6 +94,7 @@ nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -101,10 +120,10 @@ MICO_LAM = 0.0
 MICO_CAP = 131072
 
 
-def mico_flags(sigma: int) -> list:
+def mico_flags(sigma: int, execution: str = "batched") -> list:
     return ["--dataset", "mico", "--scale", "1.0", "--sigma", str(sigma),
             "--lam", str(MICO_LAM), "--metric", "mis", "--execution",
-            "batched", "--max-size", "3", "--cap", str(MICO_CAP)]
+            execution, "--max-size", "3", "--cap", str(MICO_CAP)]
 GOLDEN_FLAGS = ["--dataset", "gnutella", "--scale", "0.1", "--sigma", "20",
                 "--lam", "0.4", "--max-size", "3", "--execution", "batched",
                 "--metric", "mis"]
@@ -242,6 +261,7 @@ def phase_parity(dev) -> dict:
 
     from repro_torch.core import MatchConfig, Pattern, build_graph
     from repro_torch.core.mis import bitmap_words
+    from repro_torch.core.planner import CAP_FLOOR
     from repro_torch.data.synthetic import rmat_graph
     from repro_torch.kernels.mis_bitmap.kernel import uses_shared_memory
     from repro_torch.testing.parity import (
@@ -270,7 +290,7 @@ def phase_parity(dev) -> dict:
     for k, pats in patterns_by_k(gd, 4, per_level=8).items():
         fcase(gd, pats, cd)
     gs = rmat_graph(3000, 30000, n_labels=2, seed=4)  # skewed degrees
-    for cap in (1000, 16384):                     # partial / many row tiles
+    for cap in (1000, CAP_FLOOR, 16384):  # partial / auto's floor / many tiles
         for k, pats in patterns_by_k(gs, 3, per_level=8).items():
             fcase(gs, pats, geometry(gs, cap=cap, root_block=1024, chunk=16))
     go = random_graph(200, 6, 1, seed=5)
@@ -282,7 +302,8 @@ def phase_parity(dev) -> dict:
                        np.zeros(2, np.int32))],
           geometry(ge, cap=64, root_block=32))
     _log("parity: frontier_expand == plain (exact, tolerance 0) on k=2..5, "
-         "multi-chunk, skewed degrees, overflow, edgeless, P>1")
+         f"multi-chunk, skewed degrees, cap {CAP_FLOOR}, overflow, edgeless, "
+         "P>1")
 
     def mcase(*a, **kw):
         worst["mis_bitmap"] = max(worst["mis_bitmap"], mis_case(*a, **kw))
@@ -316,6 +337,71 @@ def phase_golden(out: Path):
             + "\nvs\n" + json.dumps(_strip_wall_clock(want))[:2000])
     _log(f"golden: port CLI on cuda == reference CLI --json "
          f"(n_frequent={got['n_frequent']}, searched={got['searched']})")
+    flags = [f for f in GOLDEN_FLAGS]
+    flags[flags.index("--execution") + 1] = "auto"
+    _zero_counts()
+    t0 = time.monotonic()
+    auto = _run_cli(flags + ["--calibration", str(_default_calibration(out))],
+                    out / "smoke_golden_auto.json")
+    wall = time.monotonic() - t0
+    if auto["frequent"] != want["frequent"]:
+        raise AssertionError(f"golden under auto: frequent set "
+                             f"{auto['frequent'][:20]} is not the golden's "
+                             f"{want['frequent'][:20]}")
+    _log(f"golden: --execution auto gives the golden's frequent set "
+         f"(n_frequent={auto['n_frequent']}) in wall_s={wall:.2f}, "
+         f"launches={_mining_counts()}; plans: {_plans(auto)}")
+
+
+def _default_calibration(out: Path, name: str = "auto") -> Path:
+    """The built-in cost model written as a file under ``out``, so that a
+    run reads the H100 fit whatever the machine's environment holds (and a
+    sampled run folds its escalation fraction in there)."""
+    from repro_torch.core.planner import CostModel
+
+    path = out / f"planner_calibration_{name}.json"
+    path.write_text(json.dumps(CostModel().to_dict()))
+    return path
+
+
+def _mining_counts() -> dict:
+    counts = _read_counts()
+    return {k: counts[k] for k in ("frontier_expand", "mis_bitmap")}
+
+
+def _plans(res: dict) -> list:
+    """Each level's plan in short: plane, cap, the pricing's choice, replans."""
+    out = []
+    for lvl, st in res["per_level"].items():
+        plan = st.get("plan", {})
+        pricing = plan.get("pricing") or {}
+        out.append({"level": lvl, "plane": plan.get("plane"),
+                    "cap": plan.get("cap"), "max_batch": plan.get("max_batch"),
+                    "replans": st.get("replans"),
+                    "chosen": pricing.get("chosen"),
+                    "batched_s": pricing.get("batched_s"),
+                    "sampled_s": pricing.get("sampled_s"),
+                    "esc": pricing.get("esc"),
+                    "esc_source": pricing.get("esc_source"),
+                    "tau_min": pricing.get("tau_min"),
+                    "hidden_bound": pricing.get("hidden_bound"),
+                    "sampled": st.get("sampled")})
+    return out
+
+
+def _same_frequent(name: str, got: dict, want: dict) -> None:
+    """The frequent set with its supports and each level's counts."""
+    def counts(res):
+        return {lvl: (st["candidates"], st["searched"], st["frequent"])
+                for lvl, st in res["per_level"].items()}
+
+    if (got["frequent"], got["n_frequent"], got["searched"], counts(got)) \
+            != (want["frequent"], want["n_frequent"], want["searched"],
+                counts(want)):
+        raise AssertionError(
+            f"{name}: frequent set or level counts differ from the batched "
+            f"run: {got['n_frequent']} vs {want['n_frequent']} frequent, "
+            f"levels {counts(got)} vs {counts(want)}")
 
 
 def _counters() -> dict:
@@ -385,6 +471,105 @@ def phase_main(out: Path, sigma: int) -> dict:
     if res["timed_out"] or frequent_k3 == 0:
         raise AssertionError("the full-size run must finish with a frequent "
                              "k = 3 pattern")
+    return launches, res
+
+
+def phase_auto(out: Path, sigma: int, batched: dict) -> dict:
+    """The main run under the CLI's default ``--execution auto``."""
+    flags = mico_flags(sigma, "auto")
+    flags.remove("--execution")
+    flags.remove("auto")                    # the CLI's default
+    cal = _default_calibration(out)
+    _zero_counts()
+    t0 = time.monotonic()
+    res = _run_cli(flags + ["--calibration", str(cal)], out / "smoke_auto.json")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _mining_counts()
+    _log(f"auto: mico x1.0 sigma={sigma} wall_s={wall:.2f} "
+         f"elapsed_s={res['elapsed_s']:.2f} (batched run "
+         f"{batched['elapsed_s']:.2f}) levels_s="
+         f"{[round(st['wall_s'], 3) for st in res['per_level'].values()]} "
+         f"dispatches={res['dispatches']} health={res['health']['counts']} "
+         f"launches={launches}")
+    _log(f"auto: plans {json.dumps(_plans(res))}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the auto path never ran: {launches}")
+    _same_frequent("auto", res, batched)
+    _log("auto: frequent set, supports and level counts == the batched run")
+    return launches
+
+
+def phase_sampled(out: Path, sigma: int, batched: dict) -> dict:
+    """The main run on the sampled plane with escalation by replay."""
+    import resource
+    from unittest import mock
+
+    from repro_torch.core import batched as batched_lib
+    from repro_torch.core import sampled as sampled_lib
+    from repro_torch.kernels.mis_bitmap.kernel import mis_bitmap_select
+
+    counters: dict = {}
+    replay = {"mis_launches": 0, "record_bytes": 0, "records": 0}
+    level_sampled = sampled_lib.evaluate_level_sampled
+    sample_group = sampled_lib.sample_group
+    replay_step_fn = batched_lib._replay_step_fn
+
+    def counted_level(*a, **kw):
+        kw["counters"] = counters
+        return level_sampled(*a, **kw)
+
+    def measured_group(*a, **kw):
+        got = sample_group(*a, **kw)
+        for rec in got[5] or []:
+            for r in rec.values():
+                replay["record_bytes"] += r["emb"].nbytes
+                replay["records"] += 1
+        return got
+
+    def counted_replay(*a):
+        step = replay_step_fn(*a)
+
+        def run(*args):
+            before = mis_bitmap_select.launches
+            got = step(*args)
+            replay["mis_launches"] += mis_bitmap_select.launches - before
+            return got
+
+        return run
+
+    cal = _default_calibration(out, "sampled")
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    _zero_counts()
+    t0 = time.monotonic()
+    with mock.patch.object(sampled_lib, "evaluate_level_sampled",
+                           counted_level), \
+            mock.patch.object(sampled_lib, "sample_group", measured_group), \
+            mock.patch.object(batched_lib, "_replay_step_fn", counted_replay):
+        res = _run_cli(mico_flags(sigma, "sampled")
+                       + ["--sample-fraction", "0.25", "--calibration",
+                          str(cal)], out / "smoke_sampled.json")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _mining_counts()
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    _log(f"sampled: mico x1.0 sigma={sigma} fraction 0.25 wall_s={wall:.2f} "
+         f"elapsed_s={res['elapsed_s']:.2f} (batched run "
+         f"{batched['elapsed_s']:.2f}) levels_s="
+         f"{[round(st['wall_s'], 3) for st in res['per_level'].values()]} "
+         f"escalated={res['escalated']} estimated_patterns="
+         f"{res['estimated_patterns']} counters={counters} "
+         f"replay={replay} launches={launches} peak host RSS "
+         f"{rss0 * 1024} -> {rss1 * 1024} bytes")
+    _log(f"sampled: levels {json.dumps(_plans(res))}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the sampled path never ran: "
+                             f"{launches}")
+    if counters.get("replay_blocks", 0) < 1 or replay["mis_launches"] < 1:
+        raise AssertionError(f"no escalated block was replayed through "
+                             f"mis_bitmap: {counters}, {replay}")
+    _same_frequent("sampled", res, batched)
+    _log("sampled: frequent set, supports and level counts == the batched run")
     return launches
 
 
@@ -801,7 +986,7 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     from repro_torch.core.matcher import _init_roots, match_block
     from repro_torch.core.mis import bitmap_words, mis_greedy_update
     from repro_torch.core.plan import make_plan, stack_plans
-    from repro_torch.core.planner import root_block_order
+    from repro_torch.core.planner import CAP_FLOOR, root_block_order
     from repro_torch.data.synthetic import paper_dataset
     from repro_torch.kernels.frontier_expand.ops import frontier_expand_level
     from repro_torch.kernels.frontier_expand.ref import frontier_expand_ref
@@ -820,11 +1005,13 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     bucket3 = k3[:P]
     # real blocks: the schedule's first (highest-degree) block, a full
     # k = 2 bucket and a full k = 3 bucket, kernel vs plain at every level
-    for pats in (k2[:P], bucket3):
+    floor = dataclasses.replace(cfg, cap=CAP_FLOOR)   # overflows at the hub
+    for pats, geo in ((k2[:P], cfg), (bucket3, cfg), (bucket3, floor)):
         worst["frontier_expand"] = max(worst["frontier_expand"],
-                                       frontier_case(g, pats, cfg, dev, first))
+                                       frontier_case(g, pats, geo, dev, first))
     _log(f"kernels: frontier_expand == plain on mico blocks (P={P}, k=2, 3, "
-         f"cap={cfg.cap}, chunk={cfg.chunk}, max_chunks={cfg.max_chunks})")
+         f"cap={cfg.cap} and {CAP_FLOOR}, chunk={cfg.chunk}, "
+         f"max_chunks={cfg.max_chunks})")
 
     # timing at the main path's shapes: level 2 of the k = 3 bucket
     plans = stack_plans([make_plan(p, g) for p in bucket3], dev)
@@ -947,7 +1134,9 @@ def main(argv=None) -> int:
     worst_new = phase_bag_agg_parity(dev)
     OUT.mkdir(parents=True, exist_ok=True)
     phase_golden(OUT)
-    launches = phase_main(OUT, args.mico_sigma)
+    _, batched = phase_main(OUT, args.mico_sigma)
+    launches = phase_auto(OUT, args.mico_sigma, batched)
+    phase_sampled(OUT, args.mico_sigma, batched)
     flash_launches = phase_serve(OUT)
     bag_launches, bag = phase_recsys(dev)
     agg_launches, agg = phase_gnn(dev)

@@ -1,7 +1,8 @@
 """Where one mining run's time goes, on the card.
 
     PYTHONPATH=src python scripts/torch_profile_mine.py --dataset mico \\
-        --scale 1.0 --sigma 784 --lam 0.0 --max-size 3 [--cap 131072]
+        --scale 1.0 --sigma 784 --lam 0.0 --max-size 3 [--cap 131072] \\
+        [--execution batched|auto|sampled]
 
 Runs ``repro_torch.core.mine`` once to warm up (kernel build, CUDA context),
 then once under ``torch.profiler`` (CPU + CUDA activities), and prints:
@@ -44,6 +45,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cap", type=int, default=131072,
                     help="frontier capacity (131072: no level of the mico "
                          "x1.0 main cell overflows)")
+    ap.add_argument("--execution", default="batched",
+                    choices=["batched", "auto", "sampled"],
+                    help="the plane (auto and sampled at the built-in "
+                         "calibration and sample fraction)")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None, help="write the chrome trace here")
     args = ap.parse_args(argv)
@@ -56,7 +61,7 @@ def main(argv=None) -> int:
 
     g = paper_dataset(args.dataset, scale=args.scale)
     cfg = MiningConfig(
-        sigma=args.sigma, lam=args.lam, metric="mis", execution="batched",
+        sigma=args.sigma, lam=args.lam, metric="mis", execution=args.execution,
         max_pattern_size=args.max_size,
         match=MatchConfig.for_graph(g, cap=args.cap))
     t0 = time.monotonic()

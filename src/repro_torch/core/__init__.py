@@ -19,13 +19,16 @@ from .health import HealthEvent, RunHealth
 from .plan import PatternPlan, make_plan, stack_plans
 from .matcher import MatchConfig, match_block
 from .planner import (
+    CostModel,
     ExecutionPlanner,
     LevelPlan,
     block_degree_stat,
+    load_calibration,
     root_block_order,
 )
 from .flexis import (
     MiningConfig,
+    MiningLoopState,
     MiningResult,
     PatternStats,
     evaluate_pattern,
@@ -43,7 +46,8 @@ __all__ = [
     "generate_new_patterns", "size2_patterns",
     "HealthEvent", "RunHealth",
     "PatternPlan", "make_plan", "stack_plans", "MatchConfig", "match_block",
-    "ExecutionPlanner", "LevelPlan", "block_degree_stat", "root_block_order",
-    "MiningConfig", "MiningResult", "PatternStats", "evaluate_pattern",
+    "CostModel", "ExecutionPlanner", "LevelPlan", "block_degree_stat",
+    "load_calibration", "root_block_order",
+    "MiningConfig", "MiningLoopState", "MiningResult", "PatternStats", "evaluate_pattern",
     "initial_candidates", "mine", "tau_threshold",
 ]

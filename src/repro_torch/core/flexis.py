@@ -1,12 +1,14 @@
 """FLEXIS — Algorithm 1: the level-wise mining loop.
 
 Host control plane: candidate generation (Alg 2–4), τ computation (Eq. 1),
-early termination, timeout.  Device data plane: the *batched* executor
-(`core/batched.py`) — every same-k candidate group of a level runs as one
-step per root block with per-pattern τ masking — with the paper's
-one-pattern-at-a-time loop retained as the ``execution="sequential"``
-oracle (`evaluate_pattern`).  ``mine`` runs on ``device="cuda"`` unless the
-caller asks for the CPU.
+early termination, timeout.  Device data plane: by default the execution
+planner (`core/planner.py`, ``execution="auto"``) picks each level's plane
+and geometry — the *batched* executor (`core/batched.py`: every same-k
+candidate group of a level runs as one step per root block with per-pattern
+τ masking), the paper's one-pattern-at-a-time loop (``"sequential"``,
+`evaluate_pattern`, kept as the oracle) or the *sampled* plane
+(`core/sampled.py`).  ``mine`` runs on ``device="cuda"`` unless the caller
+asks for the CPU.
 """
 from __future__ import annotations
 
@@ -25,14 +27,16 @@ from .canonical import canonical_key, dedupe_patterns
 from .generation import edge_extension_candidates, generate_new_patterns
 from .matcher import MatchConfig, match_block, transient_match_bytes
 from .plan import make_plan, stack_plans
-from .planner import ExecutionPlanner
+from .planner import CostModel, ExecutionPlanner, LevelPlan
+from . import planner as planner_lib
 from . import batched as batched_lib
+from . import sampled as sampled_lib
 from . import mis as mis_lib
 from . import metrics as metrics_lib
 from ..device import resolve_device
 
-__all__ = ["MiningConfig", "PatternStats", "MiningResult", "tau_threshold",
-           "mine", "evaluate_pattern", "initial_candidates"]
+__all__ = ["MiningConfig", "MiningLoopState", "PatternStats", "MiningResult",
+           "tau_threshold", "mine", "evaluate_pattern", "initial_candidates"]
 
 _METRICS = ("mis", "mis_luby", "mni", "frac", "mis_exact")
 _GENERATION = ("merge", "edge_ext")
@@ -65,10 +69,8 @@ class MiningConfig:
     # pattern whose confidence interval reaches τ to the exact batched
     # plane — the frequent set and its supports stay bit-identical to
     # forced batched while clearly-infrequent patterns are priced at the
-    # sample fraction.
-    # (the port's default is "batched": "auto" needs the planner's cost
-    # model, which is not ported yet)
-    execution: str = "batched"
+    # sample fraction.  ("distributed" is not ported yet and raises.)
+    execution: str = "auto"
     # ceiling on the pattern axis of one batched program (transient device
     # memory is O(batch · cap · chunk); bigger levels are sliced)
     batch_patterns: int = 64
@@ -173,6 +175,24 @@ class MiningResult:
     health: RunHealth = dataclasses.field(default_factory=RunHealth)
 
 
+@dataclasses.dataclass
+class MiningLoopState:
+    """The host loop's full carried state at a level boundary.
+
+    What a session runtime snapshots: handing a `MiningLoopState` back to
+    `mine()` via hooks resumes the loop where it stopped — ``cp`` is the
+    candidate list of the *next* level (empty once mining finished).
+    """
+
+    level: int                          # levels already completed
+    cp: List[Pattern]                   # candidates of the next level
+    frequent: List[Tuple[Pattern, int]]
+    stats: List[PatternStats]
+    per_level: Dict[int, Dict[str, Any]]
+    searched: int
+    peak_bytes: int
+    elapsed_s: float                    # wall time consumed up to the snapshot
+    timed_out: bool = False
 
 
 def tau_threshold(sigma: int, lam: float, n_vertices: int) -> int:
@@ -204,8 +224,6 @@ def initial_candidates(g: DataGraph) -> List[Pattern]:
         adj[0, 1] = adj[1, 0] = True
         out.append(Pattern(adj, np.array([a, b], np.int32)))
     return dedupe_patterns(out)
-
-
 
 
 def _check_ported(cfg: "MiningConfig") -> None:
@@ -315,42 +333,90 @@ def _device_bytes(mcfg: MatchConfig, metric: str, k: int, n: int) -> int:
     return graphless
 
 
-def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda",
-         health: Optional[RunHealth] = None) -> MiningResult:
+
+
+def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
+         health: Optional[RunHealth] = None,
+         calibration: Optional[str] = None) -> MiningResult:
     """Algorithm 1.  Returns all frequent patterns + the paper's telemetry.
 
     Runs on ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``;
-    asking for CUDA without a card raises).  ``cfg.execution`` must be
-    ``"batched"`` or ``"sequential"``: the other planes raise
-    ``NotImplementedError`` until they are ported.  Per-level telemetry
-    has the reference's keys; ``wall_s`` is the host clock per level.
+    asking for CUDA without a card raises).  ``cfg.execution`` is ``"auto"``
+    (the planner picks each level's plane and geometry from the cost model
+    that `planner.load_calibration(calibration)` loads), ``"batched"``,
+    ``"sequential"`` or ``"sampled"``; ``"distributed"`` raises
+    ``NotImplementedError`` until it is ported.
+
+    ``health`` is the run's `RunHealth` (a fresh one when omitted).  Patterns
+    that overflow an auto-derived (or within-level replanned) cap are re-run
+    at the base cap (``overflow_escalation``), which restores forced-plane
+    equality.
+
+    ``hooks`` is a session runtime's resume surface (duck-typed):
+    ``loop_resume()`` → Optional[`MiningLoopState`]; ``level_hooks(level)``
+    → per-level hooks for the level executors (`batched.evaluate_level_batched`
+    and `sampled.evaluate_level_sampled` document them), with optional
+    ``resume_plan()`` / ``record_plan(dict)``; ``on_level_end(state)`` at
+    every level boundary; optional ``pin_calibration(dict) -> dict``.  A run
+    resumed from any snapshot gives the uninterrupted run's result except
+    wall-clock fields (``elapsed_s``, per-level ``wall_s``).
     """
     _check_ported(cfg)
     t0 = time.monotonic()
     if health is None:
         health = RunHealth()
-    planner = ExecutionPlanner(g, cfg)
+    cost = planner_lib.load_calibration(calibration)
+    n_devices = 1
+    if hooks is not None and hasattr(hooks, "pin_calibration"):
+        # a session pins the planner inputs so a resume replans identically
+        pinned = hooks.pin_calibration(
+            {**cost.to_dict(), "n_devices": n_devices})
+        cost = CostModel.from_dict(pinned)
+    planner = ExecutionPlanner(g, cfg, cost_model=cost, n_devices=n_devices)
     dev_g = DeviceGraph.from_host(g, resolve_device(device))
     graph_bytes = g.nbytes()
 
-    frequent: List[Tuple[Pattern, int]] = []
-    all_stats: List[PatternStats] = []
-    per_level: Dict[int, Dict[str, Any]] = {}
-    searched = 0
-    peak_bytes = graph_bytes
-    timed_out = False
-    cp = initial_candidates(g)
-    level = 0
+    resume = hooks.loop_resume() if hooks is not None else None
+    if resume is None:
+        frequent: List[Tuple[Pattern, int]] = []
+        all_stats: List[PatternStats] = []
+        per_level: Dict[int, Dict[str, Any]] = {}
+        searched = 0
+        peak_bytes = graph_bytes
+        timed_out = False
+        cp = initial_candidates(g)
+        level = 0
+        elapsed0 = 0.0
+    else:
+        frequent = list(resume.frequent)
+        all_stats = list(resume.stats)
+        per_level = dict(resume.per_level)
+        searched = resume.searched
+        peak_bytes = max(graph_bytes, resume.peak_bytes)
+        timed_out = resume.timed_out
+        cp = list(resume.cp)
+        level = resume.level
+        elapsed0 = resume.elapsed_s
 
     label_universe = sorted(set(g.labels.tolist()))
-    searched_keys = set()
+    searched_keys = {canonical_key(st.pattern) for st in all_stats}
     mis_mode = cfg.metric in ("mis", "mis_luby", "mis_exact")
     block_order = planner.block_order
-    deadline = None if cfg.time_limit_s is None else t0 + cfg.time_limit_s
+    deadline = (None if cfg.time_limit_s is None
+                else t0 + max(cfg.time_limit_s - elapsed0, 0.0))
+
+    def loop_state(next_cp: List[Pattern]) -> MiningLoopState:
+        return MiningLoopState(
+            level=level, cp=list(next_cp), frequent=list(frequent),
+            stats=list(all_stats), per_level=dict(per_level),
+            searched=searched, peak_bytes=peak_bytes,
+            elapsed_s=elapsed0 + (time.monotonic() - t0),
+            timed_out=timed_out)
 
     while cp:
         level += 1
         level_t0 = time.monotonic()
+        level_hooks = hooks.level_hooks(level) if hooks is not None else None
         level_frequent: List[Pattern] = []
         lvl_searched = 0
         lvl_pruned = 0
@@ -371,18 +437,80 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda",
             eval_pats.append(pat)
             eval_taus.append(tau)
 
-        plan = planner.plan_level(level, eval_pats, eval_taus,
-                                  prev=per_level.get(level - 1))
-        if plan.plane == "batched" and eval_pats:
-            outcomes, lvl_timed_out, tel = batched_lib.evaluate_level_batched(
-                g, dev_g, eval_pats, eval_taus, cfg.metric, plan.match,
-                complete=cfg.complete, deadline=deadline,
-                max_batch=plan.max_batch, block_order=block_order)
+        # plan the level: a mid-level resume replays the recorded decision;
+        # otherwise the planner decides from the previous level's telemetry
+        plan: Optional[LevelPlan] = None
+        if level_hooks is not None:
+            resume_plan = getattr(level_hooks, "resume_plan", None)
+            d = resume_plan() if resume_plan is not None else None
+            if d is not None:
+                plan = LevelPlan.from_dict(d, cfg.match)
+        if plan is None:
+            plan = planner.plan_level(level, eval_pats, eval_taus,
+                                      prev=per_level.get(level - 1))
+        if level_hooks is not None and cfg.execution in ("auto", "sampled"):
+            record_plan = getattr(level_hooks, "record_plan", None)
+            if record_plan is not None:
+                record_plan(plan.to_dict())
+
+        tel = None
+        if plan.plane in ("batched", "sampled") and eval_pats:
+            if plan.plane == "sampled":
+                outcomes, lvl_timed_out, tel = sampled_lib.evaluate_level_sampled(
+                    g, dev_g, eval_pats, eval_taus, cfg.metric, plan.match,
+                    sample=plan.sample, confidence=cfg.confidence,
+                    escalate=cfg.escalate, complete=cfg.complete,
+                    deadline=deadline, max_batch=plan.max_batch,
+                    hooks=level_hooks, block_order=block_order,
+                    sample_rounds=cfg.sample_rounds)
+            else:
+                # within-level replanning is an auto-plane behaviour: the
+                # forced batched plane keeps the config geometry verbatim
+                outcomes, lvl_timed_out, tel = batched_lib.evaluate_level_batched(
+                    g, dev_g, eval_pats, eval_taus, cfg.metric, plan.match,
+                    complete=cfg.complete, deadline=deadline,
+                    max_batch=plan.max_batch, hooks=level_hooks,
+                    block_order=block_order,
+                    replan=cfg.execution == "auto")
             timed_out |= lvl_timed_out
             lvl_dispatches += tel.dispatches
             lvl_max_count = max(lvl_max_count, tel.max_count)
             lvl_overflowed |= tel.overflowed
             peak_bytes = max(peak_bytes, graph_bytes + tel.state_bytes)
+            # overflow escalation: the planner's right-sized cap guarantees
+            # headroom only over the *previous* level's peak, so a level can
+            # still overflow it.  Truncation is the only cap-dependent
+            # behaviour, so re-running just the overflowed patterns at the
+            # base geometry restores forced-plane equality.
+            esc = [i for i, o in enumerate(outcomes)
+                   if o is not None and o.overflowed]
+            if esc and not timed_out \
+                    and (plan.match.cap < cfg.match.cap or tel.replans > 0):
+                re_out, re_to, re_tel = batched_lib.evaluate_level_batched(
+                    g, dev_g, [eval_pats[i] for i in esc],
+                    [eval_taus[i] for i in esc], cfg.metric, cfg.match,
+                    complete=cfg.complete, deadline=deadline,
+                    max_batch=plan.max_batch, block_order=block_order)
+                timed_out |= re_to
+                lvl_dispatches += re_tel.dispatches
+                peak_bytes = max(peak_bytes, graph_bytes + re_tel.state_bytes)
+                outcomes = list(outcomes)
+                done = 0
+                for i, o in zip(esc, re_out):
+                    if o is not None:
+                        outcomes[i] = o
+                        done += 1
+                # occupancy telemetry describes the *final* outcomes (the
+                # next level's plan is derived from these)
+                lvl_max_count = max((o.max_count for o in outcomes
+                                     if o is not None), default=0)
+                lvl_overflowed = any(o.overflowed for o in outcomes
+                                     if o is not None)
+                health.record(
+                    "overflow_escalation",
+                    f"{done}/{len(esc)} patterns overflowed derived cap "
+                    f"{plan.match.cap}; re-run at base cap {cfg.match.cap}",
+                    level=level)
             for pat, tau, out in zip(eval_pats, eval_taus, outcomes):
                 if out is None:  # level timed out before this group ran
                     continue
@@ -399,6 +527,7 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda",
                     frequent.append((pat, st.support))
                     level_frequent.append(pat)
         else:
+            seq_stats: List[PatternStats] = []
             for pat, tau in zip(eval_pats, eval_taus):
                 if deadline is not None and time.monotonic() > deadline:
                     timed_out = True
@@ -407,10 +536,38 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda",
                                       match_cfg=plan.match,
                                       block_order=block_order)
                 lvl_dispatches += st.dispatches
+                seq_stats.append(st)
                 peak_bytes = max(
                     peak_bytes,
                     graph_bytes + _device_bytes(plan.match, cfg.metric,
                                                 pat.k, g.n))
+            # the same overflow escalation (auto may plan sequential levels
+            # at a derived cap)
+            if plan.match.cap < cfg.match.cap and not timed_out:
+                n_esc = 0
+                for j, st in enumerate(seq_stats):
+                    if not st.overflowed:
+                        continue
+                    if deadline is not None and time.monotonic() > deadline:
+                        timed_out = True
+                        break
+                    st = evaluate_pattern(g, dev_g, st.pattern, st.tau, cfg,
+                                          match_cfg=cfg.match,
+                                          block_order=block_order)
+                    lvl_dispatches += st.dispatches
+                    seq_stats[j] = st
+                    n_esc += 1
+                    peak_bytes = max(
+                        peak_bytes,
+                        graph_bytes + _device_bytes(cfg.match, cfg.metric,
+                                                    st.pattern.k, g.n))
+                if n_esc:
+                    health.record(
+                        "overflow_escalation",
+                        f"{n_esc} patterns overflowed derived cap "
+                        f"{plan.match.cap}; re-run at base cap "
+                        f"{cfg.match.cap}", level=level)
+            for st in seq_stats:
                 searched += 1
                 lvl_searched += 1
                 lvl_max_count = max(lvl_max_count, st.max_count)
@@ -429,6 +586,16 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda",
             "overflowed": bool(lvl_overflowed),
             "wall_s": time.monotonic() - level_t0,
         }
+        if cfg.execution in ("auto", "sampled"):
+            per_level[level]["plan"] = plan.to_dict()
+            if tel is not None and tel.sampled is not None:
+                per_level[level]["sampled"] = tel.sampled
+            if tel is not None and tel.block_peaks is not None:
+                # block-id indexed peak occupancy — next level's draw weights
+                per_level[level]["block_peaks"] = [
+                    int(x) for x in tel.block_peaks]
+        if cfg.execution == "auto" and tel is not None:
+            per_level[level]["replans"] = int(tel.replans)
         if timed_out or not level_frequent:
             cp = []
         elif (cfg.generation == "merge"
@@ -449,13 +616,15 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda",
                 p for p in cp
                 if p.k <= cfg.max_pattern_size and canonical_key(p) not in searched_keys
             ]
+        if hooks is not None:
+            hooks.on_level_end(loop_state(cp))
 
     return MiningResult(
         frequent=frequent,
         searched=searched,
         per_level=per_level,
         stats=all_stats,
-        elapsed_s=time.monotonic() - t0,
+        elapsed_s=elapsed0 + (time.monotonic() - t0),
         timed_out=timed_out,
         peak_device_bytes=peak_bytes,
         health=health,

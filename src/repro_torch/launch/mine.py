@@ -9,8 +9,13 @@ counts, searched patterns, memory, time).  Runs on the card by default
 (``--device cuda``), where every expansion level and every greedy-mIS update
 is a hand-written CUDA kernel; ``--device cpu`` runs the plain torch
 versions instead (the torch expansion pipeline, two-phase as
-``MatchConfig.for_graph`` sets it).  The device alone picks the path.  ``--json`` writes the reference
-launcher's schema.
+``MatchConfig.for_graph`` sets it).  The device alone picks the path.
+``--execution auto`` (the default) lets the planner choose each level's
+plane and geometry from the port's calibration (``--calibration``, else
+``$REPRO_TORCH_PLANNER_CALIBRATION``, else
+``./planner_calibration_torch.json``, else the built-in H100 fit); a run
+with sampled levels folds its measured escalation fraction into that file.
+``--json`` writes the reference launcher's schema.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import time
 
 from repro_torch.core import MatchConfig, MiningConfig, mine
 from repro_torch.core.flexis import tau_threshold
+from repro_torch.core.planner import persist_escalation_fraction
 from repro_torch.data.synthetic import PAPER_DATASETS, paper_dataset
 from repro_torch.device import resolve_device
 
@@ -38,30 +44,50 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["mis", "mis_luby", "mni", "frac"])
     ap.add_argument("--generation", default="merge",
                     choices=["merge", "edge_ext"])
-    ap.add_argument("--execution", default="batched",
-                    choices=["batched", "sequential"],
-                    help="data plane: one batched step per same-k candidate "
-                         "group and root block (batched, default), or the "
-                         "paper's per-pattern loop (sequential oracle)")
+    ap.add_argument("--execution", default="auto",
+                    choices=["auto", "batched", "sequential", "sampled"],
+                    help="data plane: the cost-model planner picks per level "
+                         "(auto, default; decisions recorded in per_level "
+                         "and --json), one batched step per same-k "
+                         "candidate group and root block (batched), the "
+                         "paper's per-pattern loop (sequential oracle), or "
+                         "a weighted root-block sample with exact "
+                         "escalation (sampled; a pattern is pruned only "
+                         "when its confidence interval lies below tau, "
+                         "every other support is exact — see "
+                         "--sample-fraction/--confidence)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to mine: the card with the CUDA kernels "
                          "(default) or the CPU with their plain versions")
     ap.add_argument("--sample-fraction", type=float, default=0.25,
-                    help="sampled-plane knob, validated as the reference does "
-                         "(the sampled plane is not ported yet)")
+                    help="sampled plane: target fraction of root blocks "
+                         "drawn per level (1.0 degenerates to the exact "
+                         "batched plane)")
     ap.add_argument("--confidence", type=float, default=0.95,
-                    help="sampled-plane knob (see --sample-fraction)")
+                    help="sampled plane: nominal CI level of the support "
+                         "estimator — patterns whose interval reaches tau "
+                         "escalate to the exact plane")
     ap.add_argument("--sample-seed", type=int, default=0,
-                    help="sampled-plane knob (see --sample-fraction)")
+                    help="sampled plane: RNG key root of the per-level "
+                         "block draws")
     ap.add_argument("--sample-rounds", type=int, default=3,
-                    help="sampled-plane knob (see --sample-fraction)")
+                    help="sampled plane: max adaptive draw rounds per level "
+                         "(1 = the single --sample-fraction draw)")
     ap.add_argument("--root-order", default="degree",
                     choices=["degree", "vertex"],
                     help="root-block schedule: highest max-out-degree "
                          "blocks first (degree, default) or vertex-id order")
+    ap.add_argument("--calibration", default=None,
+                    help="planner calibration JSON (repro_torch.launch."
+                         "calibrate); default: "
+                         "$REPRO_TORCH_PLANNER_CALIBRATION, then "
+                         "./planner_calibration_torch.json, then the "
+                         "built-in H100 fit")
     ap.add_argument("--root-block", type=int, default=None,
                     help="root-block width override (default: sized by "
-                         "MatchConfig.for_graph)")
+                         "MatchConfig.for_graph).  The sampled plane draws "
+                         "root blocks: a graph one block covers has "
+                         "nothing to sample")
     ap.add_argument("--max-size", type=int, default=4)
     ap.add_argument("--time-limit", type=float, default=1800.0,
                     help="paper uses a 30-minute timeout")
@@ -112,16 +138,20 @@ def main(argv=None) -> int:
             **({"root_block": args.root_block}
                if args.root_block is not None else {})),
     )
-    res = mine(g, cfg, device=device)
+    res = mine(g, cfg, device=device, calibration=args.calibration)
 
     print(f"[mine] done in {res.elapsed_s:.2f}s on {device}"
           f"{' (TIMED OUT)' if res.timed_out else ''}")
     print(f"[mine] frequent patterns: {len(res.frequent)}  "
           f"searched: {res.searched}  peak device bytes: "
           f"{res.peak_device_bytes / 2**20:.1f} MiB")
+    if res.health.degraded:
+        print(f"[mine] health: {res.health.to_dict()['counts']} — results "
+              f"are exact; see --json health.events for detail")
     for lvl, st in res.per_level.items():
         pretty = {k: (round(v, 3) if isinstance(v, float) else v)
-                  for k, v in st.items()}
+                  for k, v in st.items()
+                  if k != "block_peaks"}  # long per-block list; JSON only
         print(f"[mine]   level {lvl}: {pretty}")
     for pat, sup in res.frequent[:10]:
         tau = tau_threshold(args.sigma, args.lam, pat.k)
@@ -129,6 +159,20 @@ def main(argv=None) -> int:
               f"labels={pat.labels.tolist()} edges={pat.edges()}")
     if len(res.frequent) > 10:
         print(f"[mine]   … and {len(res.frequent) - 10} more")
+
+    # warm-start future pricing: fold the measured escalation fraction of
+    # this run's sampled levels into the calibration file (schema 3)
+    samp = [v["sampled"] for v in res.per_level.values()
+            if isinstance(v.get("sampled"), dict)
+            and not v["sampled"].get("exact", False)]
+    decided = sum(int(d.get("escalated", 0)) + int(d.get("pruned", 0))
+                  for d in samp)
+    if decided > 0 and not res.timed_out:
+        measured = sum(int(d.get("escalated", 0)) for d in samp) / decided
+        where = persist_escalation_fraction(measured, path=args.calibration)
+        if where:
+            print(f"[mine] calibration: measured escalation fraction "
+                  f"{measured:.3f} folded into {where}")
 
     if args.json:
         with open(args.json, "w") as f:

@@ -247,6 +247,65 @@ def test_mine_defaults_launch_both_kernels(cuda, execution):
     assert mis_bitmap_select.launches > 0
 
 
+def _mine_summary(r):
+    per_level = {lvl: {k: v for k, v in st.items() if k != "wall_s"}
+                 for lvl, st in r.per_level.items()}
+    return ([(p.key(), s) for p, s in r.frequent],
+            [(s.support, s.embeddings_found, s.blocks_run, s.overflowed,
+              s.max_count, s.estimated) for s in r.stats],
+            per_level, r.health.to_dict())
+
+
+@pytest.mark.parametrize("execution", ["auto", "sampled"])
+def test_mine_auto_sampled_cuda_equals_cpu(cuda, execution):
+    # the planner's decisions, the sample draws, the capture/replay tables
+    # and the overflow escalation give the same run on the card as on the
+    # CPU (derived caps down to the floor, 13 root blocks to sample)
+    g = random_graph(400, 3, 3, seed=17)
+    match = MatchConfig.for_graph(g, cap=4096, root_block=32, chunk=8)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        cfg = MiningConfig(sigma=6, max_pattern_size=3, execution=execution,
+                           sample_fraction=0.5, match=match)
+        res[dev] = _mine_summary(mine(g, cfg, device=dev))
+    assert res["cpu"] == res["cuda"]
+    assert res["cuda"][0]
+
+
+def test_sampled_replay_launches_mis_bitmap(cuda):
+    # escalation replays the sampled blocks through the mis_bitmap kernel:
+    # one launch per matched or replayed step, no block run twice
+    from repro_torch.core.batched import evaluate_level_batched
+    from repro_torch.core.flexis import initial_candidates
+    from repro_torch.core.planner import ExecutionPlanner
+    from repro_torch.core.sampled import evaluate_level_sampled
+
+    g = random_graph(400, 3, 3, seed=17)
+    match = MatchConfig.for_graph(g, cap=4096, root_block=32, chunk=8)
+    cfg = MiningConfig(sigma=6, execution="sampled", sample_fraction=0.5,
+                       match=match)
+    pats = initial_candidates(g)
+    plan = ExecutionPlanner(g, cfg).plan_level(1, pats, [3] * len(pats))
+    dev_g = DeviceGraph.from_host(g, "cuda")
+    exact, _, _ = evaluate_level_batched(g, dev_g, pats, [1] * len(pats),
+                                         "mis", match, complete=True)
+    taus = [o.support + 1 for o in exact]    # no early exit in escalation
+    counters = {}
+    mis_bitmap_select.launches = 0
+    outs, timed, tel = evaluate_level_sampled(
+        g, dev_g, pats, taus, "mis", match, sample=plan.sample,
+        max_batch=64, sample_rounds=1, counters=counters)
+    assert not timed and tel.sampled["escalated"] >= 1
+    assert counters["replay_blocks"] >= 1
+    assert mis_bitmap_select.launches == tel.dispatches
+    m = -(-g.n // match.root_block)
+    assert counters["replay_blocks"] + counters["match_blocks"] == m
+    for o, e in zip(outs, exact):
+        if not o.estimated:
+            assert (o.support, o.embeddings_found) == (e.support,
+                                                       e.embeddings_found)
+
+
 @pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
 def test_flash_attention_matches_plain(cuda, case):
     # reference test shapes × {f32, bf16}, MQA, window × softcap, the

@@ -171,11 +171,10 @@ def test_cuda_without_card_raises(monkeypatch):
     assert not called
 
 
-@pytest.mark.parametrize("execution", ["auto", "sampled", "distributed"])
+@pytest.mark.parametrize("execution", ["distributed"])
 def test_unported_planes_raise(execution):
     g = t_dataset("gnutella", scale=0.005)
-    metric = "mis_luby" if execution == "distributed" else "mis"
-    cfg = TMiningConfig(sigma=4, metric=metric, execution=execution,
+    cfg = TMiningConfig(sigma=4, metric="mis_luby", execution=execution,
                         match=TMatchConfig.for_graph(g))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_mine(g, cfg, device="cpu")
