@@ -86,7 +86,24 @@ line):
                call's time and the launch counts of phases 5a (the mining
                kernels: the reference's default command) and 6–8, as one
                JSON line;
- 10. the last line: {"ok": true, "device": {...}}.
+ 10. session — after the kernel timings, checkpointed sessions through
+               the CLI's session flags:
+               session-auto (phase 5a's command with ``--checkpoint-dir``
+               and ``--checkpoint-every`` `SESSION_EVERY`, uninterrupted;
+               its --json equals 5a's minus wall-clock fields; prints the
+               snapshots, bytes a snapshot, seconds in saves and the wall
+               against 5a), session-kill (the same command killed by
+               ``REPRO_TORCH_FAULT_PLAN`` — a crash at a mid-level-2
+               ``session.snapshot`` — then ``--resume``: equal to
+               session-auto, with fewer mining launches than an
+               uninterrupted run), session-sigterm (the golden's flags in a
+               child process with ``--checkpoint-every 1``, SIGTERM once the
+               graph is loaded: exit 75, then ``--resume`` equals the
+               golden) and mis-exact (``mine(metric="mis_exact")`` through
+               the API on the card and on the CPU, on a graph inside the
+               reference's 60-embedding limit: equal results; prints the
+               collector's dispatches and frontier launches);
+ 11. the last line: {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
 nothing of the JAX package ``repro``.
@@ -127,6 +144,17 @@ def mico_flags(sigma: int, execution: str = "batched") -> list:
 GOLDEN_FLAGS = ["--dataset", "gnutella", "--scale", "0.1", "--sigma", "20",
                 "--lam", "0.4", "--max-size", "3", "--execution", "batched",
                 "--metric", "mis"]
+
+# the session phases (10): the cadence of session-auto and session-kill.
+# At 1 (the CLI's default) every snapshot inside mico's sampled level 1
+# rewrites all its replay rows as JSON — 33–42 MB a snapshot, ~5 s each
+# (PERF.md) — so the card phase snapshots every SESSION_EVERY
+# carried-state updates; level boundaries always snapshot
+SESSION_EVERY = 100
+# mis_exact (10): the reference's exact MIS takes at most 60 distinct
+# embeddings a pattern; this graph keeps every k ≤ 3 pattern inside it
+MIS_EXACT_GRAPH = dict(n=300, m=450, n_labels=20, seed=9)
+MIS_EXACT_SIGMA = 4
 
 # the serving phase (6): full width and depth, random weights
 # The prompt replay checks the prefill through 128 eager decode steps (2
@@ -497,7 +525,7 @@ def phase_auto(out: Path, sigma: int, batched: dict) -> dict:
         raise AssertionError(f"a kernel of the auto path never ran: {launches}")
     _same_frequent("auto", res, batched)
     _log("auto: frequent set, supports and level counts == the batched run")
-    return launches
+    return launches, res, wall
 
 
 def phase_sampled(out: Path, sigma: int, batched: dict) -> dict:
@@ -571,6 +599,218 @@ def phase_sampled(out: Path, sigma: int, batched: dict) -> dict:
     _same_frequent("sampled", res, batched)
     _log("sampled: frequent set, supports and level counts == the batched run")
     return launches
+
+
+def _strip_resumed(d: dict) -> dict:
+    """A --json without wall-clock fields and without ``health`` (a resumed
+    run records the recoveries an uninterrupted one never needed)."""
+    d = _strip_wall_clock(d)
+    d.pop("health")
+    return d
+
+
+def phase_session_auto(out: Path, sigma: int, auto: dict, auto_wall: float):
+    """Phase 5a's command as a session, uninterrupted: equal to 5a."""
+    import shutil
+
+    from repro_torch.testing.session_meter import SnapshotMeter
+
+    ckpt_dir = out / "session_auto"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    flags = [f for f in mico_flags(sigma, "auto") if f not in
+             ("--execution", "auto")]
+    flags += ["--checkpoint-dir", str(ckpt_dir), "--checkpoint-every",
+              str(SESSION_EVERY)]
+    cal = _default_calibration(out, "session")
+    _zero_counts()
+    with SnapshotMeter() as meter:
+        t0 = time.monotonic()
+        res = _run_cli(flags + ["--calibration", str(cal)],
+                       out / "smoke_session_auto.json")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches = _mining_counts()
+    summary = meter.summary()
+    per_level = {lvl: meter.summary(lvl) for lvl in sorted(meter.updates)}
+    _log(f"session-auto: mico x1.0 sigma={sigma} --checkpoint-every "
+         f"{SESSION_EVERY}: wall_s={wall:.2f} (phase 5a {auto_wall:.2f}, "
+         f"{wall / auto_wall:.2f}x) snapshots={summary['snapshots']} "
+         f"(state updates {summary['updates']}) bytes a snapshot median="
+         f"{summary['bytes_median']} max={summary['bytes_max']} total="
+         f"{summary['bytes_total']} mining thread in snapshots "
+         f"{summary['mining_s']:.2f} s, writes {summary['write_s']:.2f} s "
+         f"launches={launches}")
+    for lvl, row in per_level.items():
+        _log(f"session-auto: level {lvl}: {json.dumps(row)}")
+    if _strip_wall_clock(res) != _strip_wall_clock(auto):
+        raise AssertionError("session-auto: --json differs from phase 5a's")
+    _log("session-auto: --json == phase 5a's (minus wall-clock fields)")
+    return res, launches, meter
+
+
+def phase_session_kill(out: Path, sigma: int, session: dict,
+                       full_launches: dict, meter) -> dict:
+    """Kill the session at a mid-level-2 snapshot through the fault plan,
+    resume it: equal to session-auto, with fewer launches."""
+    import shutil
+
+    from repro_torch.runtime import InjectedCrash, faults
+    from repro_torch.train import checkpoint as ckpt
+
+    level2 = [i for i, snap in enumerate(meter.snapshots, 1)
+              if snap["level"] == 2 and snap["kind"] == "batched"]
+    if not level2:
+        raise AssertionError("session-auto wrote no in-flight level-2 "
+                             "snapshot to kill at")
+    at = level2[len(level2) // 2]
+    ckpt_dir = out / "session_kill"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    flags = [f for f in mico_flags(sigma, "auto") if f not in
+             ("--execution", "auto")]
+    flags += ["--checkpoint-dir", str(ckpt_dir), "--checkpoint-every",
+              str(SESSION_EVERY)]
+    os.environ[faults.FAULT_PLAN_ENV] = json.dumps(
+        [{"point": "session.snapshot", "kind": "crash", "at": at}])
+    faults.clear()                  # re-arm the env var's pickup
+    t0 = time.monotonic()
+    try:
+        _run_cli(flags + ["--calibration",
+                          str(_default_calibration(out, "kill"))],
+                 out / "smoke_session_kill.json")
+        raise AssertionError("session-kill: the injected crash never fired")
+    except InjectedCrash as e:
+        _log(f"session-kill: {e} after {time.monotonic() - t0:.2f} s")
+    finally:
+        del os.environ[faults.FAULT_PLAN_ENV]
+        faults.clear()
+        ckpt.wait_pending(raise_errors=False)
+    step = ckpt.latest_step(ckpt_dir)
+    manifest = json.loads((ckpt_dir / f"step_{step:08d}" /
+                           "manifest.json").read_text())
+    cursor = manifest["extra"]["cursor"]
+    _zero_counts()
+    t0 = time.monotonic()
+    res = _run_cli(flags + ["--resume", "--calibration",
+                            str(_default_calibration(out, "kill"))],
+                   out / "smoke_session_kill.json")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _mining_counts()
+    _log(f"session-kill: crashed at snapshot {at} of {len(meter.snapshots)} "
+         f"(level 2, in flight); resumed from step {step}, cursor {cursor}, "
+         f"in wall_s={wall:.2f}; launches after the resume {launches} "
+         f"against {full_launches} for the whole run")
+    if _strip_resumed(res) != _strip_resumed(session):
+        raise AssertionError("session-kill: the resumed --json differs from "
+                             "session-auto's")
+    if cursor["level"] != 2 or cursor["block"] is None:
+        raise AssertionError(f"session-kill: not a mid-level-2 snapshot: "
+                             f"{cursor}")
+    if not all(0 < launches[k] < full_launches[k] for k in launches):
+        raise AssertionError(f"session-kill: the resume did not run fewer "
+                             f"launches than a whole run: {launches} vs "
+                             f"{full_launches}")
+    _log("session-kill: resumed --json == session-auto's (minus wall clock "
+         "and health), with fewer launches")
+    return launches
+
+
+def phase_session_sigterm(out: Path) -> None:
+    """The golden's flags as a session in a child process: SIGTERM once the
+    graph is loaded → exit 75 with a committed snapshot → --resume equals
+    the golden."""
+    import shutil
+    import signal
+
+    from repro_torch.launch.mine import EXIT_PREEMPTED
+
+    ckpt_dir = out / "session_sigterm"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    flags = GOLDEN_FLAGS + ["--checkpoint-dir", str(ckpt_dir),
+                            "--checkpoint-every", "1"]
+    path = out / "smoke_session_sigterm.json"
+    path.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.mine", *flags,
+           "--device", "cuda", "--json", str(path)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    head = []
+    try:
+        for line in proc.stdout:
+            head.append(line)
+            if "|V|=" in line:
+                break
+        proc.send_signal(signal.SIGTERM)
+        output = "".join(head) + proc.communicate(timeout=300)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    committed = sorted(p.parent.name for p in ckpt_dir.glob("step_*/COMMIT"))
+    _log(f"session-sigterm: child exited {proc.returncode} after "
+         f"{time.monotonic() - t0:.2f} s, committed {committed}")
+    if proc.returncode != EXIT_PREEMPTED or "preempted" not in output \
+            or not committed or path.exists():
+        raise AssertionError(f"session-sigterm: expected exit "
+                             f"{EXIT_PREEMPTED} with a committed snapshot "
+                             f"and no result:\n{output[-2000:]}")
+    got = _run_cli(flags + ["--resume"], path)
+    want = json.loads(GOLDEN.read_text())
+    if _strip_resumed(got) != _strip_resumed(want):
+        raise AssertionError("session-sigterm: the resumed --json is not "
+                             "the golden's")
+    _log("session-sigterm: exit 75, then --resume == the golden --json")
+
+
+def phase_mis_exact(dev) -> dict:
+    """``mine(metric="mis_exact")`` through the API on the card and on the
+    CPU: equal results; the collector's dispatches and launches."""
+    from repro_torch.core import MatchConfig, MiningConfig, mine
+    from repro_torch.core.batched import MIS_EXACT_BLOCKS_PER_DISPATCH
+    from repro_torch.data.synthetic import rmat_graph
+
+    spec = dict(MIS_EXACT_GRAPH)
+    g = rmat_graph(spec.pop("n"), spec.pop("m"), undirected=True, **spec)
+    cfg = MiningConfig(sigma=MIS_EXACT_SIGMA, lam=1.0, metric="mis_exact",
+                       max_pattern_size=3,
+                       match=MatchConfig.for_graph(g, cap=1024,
+                                                   root_block=32))
+    runs, walls = {}, {}
+    for device in ("cpu", "cuda"):
+        _zero_counts()
+        t0 = time.monotonic()
+        res = mine(g, cfg, device=device)
+        walls[device] = time.monotonic() - t0
+        runs[device] = res
+    launches = _mining_counts()
+    summary = {dev: ([(p.key(), s) for p, s in r.frequent],
+                     [(st.pattern.key(), st.support, st.embeddings_found,
+                       st.overflowed, st.blocks_run, st.max_count,
+                       st.dispatches) for st in r.stats], r.searched)
+               for dev, r in runs.items()}
+    got = runs["cuda"]
+    dispatches = sum(st.dispatches for st in got.stats)
+    shapes = sorted({st.pattern.k for st in got.stats})
+    _log(f"mis-exact: rmat {g.n} vertices, {g.n_edges} edges, "
+         f"{g.n_labels} labels, sigma={MIS_EXACT_SIGMA}: "
+         f"{len(got.frequent)} frequent of {got.searched} searched (k in "
+         f"{shapes}); collector dispatches {dispatches} (P = "
+         f"{MIS_EXACT_BLOCKS_PER_DISPATCH} blocks each), frontier_expand "
+         f"launches {launches['frontier_expand']}, "
+         f"mis_bitmap {launches['mis_bitmap']}; wall cuda "
+         f"{walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
+    if summary["cuda"] != summary["cpu"]:
+        raise AssertionError("mis-exact: the card's result differs from the "
+                             "CPU's")
+    if not got.frequent or launches["frontier_expand"] <= 0:
+        raise AssertionError(f"mis-exact: nothing frequent or no frontier "
+                             f"launch ({launches})")
+    _log("mis-exact: card == CPU (frequent set, supports, every pattern's "
+         "stats)")
+    return {"dispatches": dispatches,
+            "frontier_expand": launches["frontier_expand"]}
 
 
 def phase_serve(out: Path) -> int:
@@ -1061,7 +1301,10 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     # the wrapper's host time when it is longer than the kernel's)
     mis_device_ms = _device_ms_by_kernel(lambda: [
         mis_bitmap_select(bm, cnt, emb, n_valid, tau, k=3)
-        for _ in range(10)])["mis_greedy_kernel"] / 10
+        for _ in range(10)]).get("mis_greedy_kernel")
+    # informational: a trace that lost the kernel's events is "not measured"
+    mis_device_ms = ("not measured" if mis_device_ms is None
+                     else f"{mis_device_ms / 10:.4f}")
     rows = mis_rows_scanned(emb, n_valid, tau, 3)
     # per pattern: rows the prefilter tested and passed, rows the decider
     # examined, the CTA's ns (one more launch, untimed)
@@ -1072,7 +1315,7 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     slow = max(per, key=lambda r: r[4])
     tot = stats.sum(0).tolist()
     _log(f"kernels: mis_bitmap hub block: ms={mis_ms:.4f} (CUDA events, "
-         f"through the wrapper), kernel device ms={mis_device_ms:.4f} "
+         f"through the wrapper), kernel device ms={mis_device_ms} "
          f"(torch.profiler); rows tested {tot[0]}, passed by the "
          f"prefilter {tot[1]}, decided {tot[2]} (greedy reads {rows}); "
          f"slowest pattern: n_valid {slow[0]}, tested {slow[1]}, passed "
@@ -1135,13 +1378,18 @@ def main(argv=None) -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     phase_golden(OUT)
     _, batched = phase_main(OUT, args.mico_sigma)
-    launches = phase_auto(OUT, args.mico_sigma, batched)
+    launches, auto, auto_wall = phase_auto(OUT, args.mico_sigma, batched)
     phase_sampled(OUT, args.mico_sigma, batched)
     flash_launches = phase_serve(OUT)
     bag_launches, bag = phase_recsys(dev)
     agg_launches, agg = phase_gnn(dev)
     kernels = phase_kernels(dev, launches, worst, args.mico_sigma)
     flash = phase_flash_kernel(dev)
+    session, session_launches, meter = phase_session_auto(
+        OUT, args.mico_sigma, auto, auto_wall)
+    phase_session_kill(OUT, args.mico_sigma, session, session_launches, meter)
+    phase_session_sigterm(OUT)
+    phase_mis_exact(dev)
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

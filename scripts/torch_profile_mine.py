@@ -15,7 +15,10 @@ then once under ``torch.profiler`` (CPU + CUDA activities), and prints:
     so kernels do not overlap);
   * the card's name and power limit.
 
-``--trace PATH`` also writes the chrome-format trace.
+``--trace PATH`` also writes the chrome-format trace.  With
+``--checkpoint-dir`` the profiled run is a fresh `MiningSession` into that
+directory (``--checkpoint-every`` snapshots), so the trace holds the copies
+of the metric state to the host and the snapshots' host time.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.core import MatchConfig, MiningConfig, mine
 from repro_torch.core.flexis import initial_candidates
 from repro_torch.data.synthetic import PAPER_DATASETS, paper_dataset
 from repro_torch.kernels._build import kernel_source
+from repro_torch.runtime import MiningSession
 
 
 def main(argv=None) -> int:
@@ -51,6 +55,9 @@ def main(argv=None) -> int:
                          "calibration and sample fraction)")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None, help="write the chrome trace here")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="profile a fresh session writing snapshots here")
+    ap.add_argument("--checkpoint-every", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -72,7 +79,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        res = mine(g, cfg, device="cuda")
+        if args.checkpoint_dir:
+            res = MiningSession(g, cfg, args.checkpoint_dir, device="cuda",
+                                checkpoint_every=args.checkpoint_every,
+                                resume="never").run()
+        else:
+            res = mine(g, cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     levels = sum(v["wall_s"] for v in res.per_level.values())

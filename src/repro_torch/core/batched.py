@@ -39,7 +39,8 @@ from . import metrics as metrics_lib
 
 __all__ = [
     "GroupState", "LevelTelemetry", "PatternOutcome",
-    "evaluate_level_batched", "level_groups", "stack_plans",
+    "collect_pattern_embeddings", "evaluate_level_batched", "level_groups",
+    "stack_plans", "MIS_EXACT_BLOCKS_PER_DISPATCH",
 ]
 
 _BATCHABLE_METRICS = ("mis", "mis_luby", "mni", "frac")
@@ -51,6 +52,10 @@ _INT32_MAX = np.iinfo(np.int32).max
 # default ceiling on the pattern axis: transient match memory is
 # O(P · cap · chunk), so an unbounded level would multiply device footprint
 DEFAULT_MAX_BATCH = 64
+
+# blocks stacked per dispatch by the mis_exact embedding collector — also
+# the transient-memory multiplier `flexis._device_bytes` accounts for it
+MIS_EXACT_BLOCKS_PER_DISPATCH = 8
 
 
 # ---------------------------------------------------------------------------
@@ -660,3 +665,66 @@ def evaluate_level_batched(
             telemetry.max_count = max(telemetry.max_count, o.max_count)
             telemetry.overflowed |= o.overflowed
     return outcomes, timed_out, telemetry
+
+
+# ---------------------------------------------------------------------------
+# batched embedding collection (mis_exact's device half)
+# ---------------------------------------------------------------------------
+
+def collect_pattern_embeddings(
+    dev_g: DeviceGraph,
+    plan: PatternPlan,
+    cfg: MatchConfig,
+    n: int,
+    *,
+    block_order: Optional[np.ndarray] = None,
+    blocks_per_dispatch: int = MIS_EXACT_BLOCKS_PER_DISPATCH,
+) -> Tuple[np.ndarray, int, bool, int, int, int]:
+    """Enumerate EVERY block's embeddings for one pattern, batched on device.
+
+    The device half of ``mis_exact``: the one plan is stacked
+    ``blocks_per_dispatch`` times into a blocks axis and each row gets its
+    own block start, so one `match_block` call — on the card one frontier
+    launch per expansion level — covers that many root blocks.  Tail
+    dispatches pad with ``block_start = n`` (matches no roots), so results
+    are independent of the dispatch width.  Only the valid rows are copied
+    to the host; the branch-and-bound MIS solve stays there.
+
+    Returns (embeddings (m, k) int32 in schedule order, found, overflowed,
+    blocks_run, max_count, dispatches) — field for field what the
+    per-block sequential loop accumulates.
+    """
+    assert blocks_per_dispatch >= 1
+    n_blocks = -(-n // cfg.root_block)
+    if block_order is None:
+        block_order = np.arange(n_blocks, dtype=np.int64)
+    assert block_order.shape[0] == n_blocks
+    dev = dev_g.device
+    plans = stack_plans([plan] * blocks_per_dispatch, dev)
+
+    chunks: List[np.ndarray] = []
+    found_total = 0
+    overflowed = False
+    max_count = 0
+    dispatches = 0
+    for lo in range(0, n_blocks, blocks_per_dispatch):
+        ids = np.asarray(block_order[lo: lo + blocks_per_dispatch], np.int64)
+        pad = blocks_per_dispatch - ids.shape[0]
+        starts = np.concatenate(
+            [ids * cfg.root_block, np.full(pad, n, np.int64)])
+        emb, count, found, ovf, peak = match_block(
+            dev_g, plans, torch.as_tensor(starts, dtype=torch.int32,
+                                          device=dev), cfg)
+        dispatches += 1
+        valid = ids.shape[0]
+        ints = torch.stack([count, found, ovf.to(torch.int32), peak]
+                           )[:, :valid].cpu().numpy()
+        found_total += int(ints[1].sum())
+        overflowed |= bool(ints[2].any())
+        max_count = max(max_count, int(ints[3].max()))
+        if ints[0].any():
+            chunks.extend(r for r in _captured_rows(emb[:valid], ints[0])
+                          if r.shape[0])
+    embs = (np.concatenate(chunks, axis=0) if chunks
+            else np.zeros((0, plan.k), np.int32))
+    return embs, found_total, overflowed, n_blocks, max_count, dispatches

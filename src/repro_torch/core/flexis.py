@@ -226,13 +226,6 @@ def initial_candidates(g: DataGraph) -> List[Pattern]:
     return dedupe_patterns(out)
 
 
-def _check_ported(cfg: "MiningConfig") -> None:
-    if cfg.metric == "mis_exact":
-        raise NotImplementedError(
-            'metric="mis_exact" is not ported yet (ROADMAP Queue 1: '
-            "mis_exact's batched embedding collector)")
-
-
 def evaluate_pattern(
     host_g: DataGraph,
     dev_g: DeviceGraph,
@@ -248,14 +241,16 @@ def evaluate_pattern(
     ``match_cfg`` overrides ``cfg.match``; ``block_order`` is the static
     root-block schedule (a permutation of block ids; None = vertex-id
     order).  The pattern runs as a bucket of one (P = 1) on ``dev_g``'s
-    device.
+    device.  ``mis_exact`` collects embeddings with the block-batched
+    collector (`batched.collect_pattern_embeddings`: the same per-block
+    results, a dispatch per `MIS_EXACT_BLOCKS_PER_DISPATCH` blocks) and
+    solves MIS exactly on the host.
     """
-    _check_ported(cfg)
     from ..kernels.mis_bitmap.ops import mis_greedy_update_kernel
 
     mcfg = cfg.match if match_cfg is None else match_cfg
     dev = dev_g.device
-    plans = stack_plans([make_plan(pat, host_g)], dev)
+    plan = make_plan(pat, host_g)
     k = pat.k
     n = host_g.n
     metric = cfg.metric
@@ -266,6 +261,18 @@ def evaluate_pattern(
     if block_order is None:
         block_order = np.arange(n_blocks, dtype=np.int64)
 
+    if metric == "mis_exact":
+        embs, found_total, overflowed, blocks, peak, dispatches = \
+            batched_lib.collect_pattern_embeddings(
+                dev_g, plan, mcfg, n, block_order=block_order)
+        support = metrics_lib.exact_mis(embs)
+        return PatternStats(
+            pattern=pat, support=support, tau=tau,
+            frequent=support >= tau, embeddings_found=found_total,
+            overflowed=overflowed, blocks_run=blocks,
+            max_count=peak, dispatches=dispatches)
+
+    plans = stack_plans([plan], dev)
     if metric in ("mis", "mis_luby"):
         state = (mis_lib.bitmap_init(n, dev)[None],
                  torch.zeros(1, dtype=torch.int32, device=dev))
@@ -330,6 +337,10 @@ def _device_bytes(mcfg: MatchConfig, metric: str, k: int, n: int) -> int:
         graphless += k * n
     elif metric == "frac":
         graphless += k * n * 4
+    elif metric == "mis_exact":
+        # block-batched embedding collection stacks whole blocks' transient
+        # state on the leading axis
+        graphless *= batched_lib.MIS_EXACT_BLOCKS_PER_DISPATCH
     return graphless
 
 
@@ -361,7 +372,6 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
     resumed from any snapshot gives the uninterrupted run's result except
     wall-clock fields (``elapsed_s``, per-level ``wall_s``).
     """
-    _check_ported(cfg)
     t0 = time.monotonic()
     if health is None:
         health = RunHealth()
@@ -452,10 +462,12 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
             record_plan = getattr(level_hooks, "record_plan", None)
             if record_plan is not None:
                 record_plan(plan.to_dict())
+        # mis_exact's MIS solve is host-side: it always runs sequentially
+        plane = plan.plane if cfg.metric != "mis_exact" else "sequential"
 
         tel = None
-        if plan.plane in ("batched", "sampled") and eval_pats:
-            if plan.plane == "sampled":
+        if plane in ("batched", "sampled") and eval_pats:
+            if plane == "sampled":
                 outcomes, lvl_timed_out, tel = sampled_lib.evaluate_level_sampled(
                     g, dev_g, eval_pats, eval_taus, cfg.metric, plan.match,
                     sample=plan.sample, confidence=cfg.confidence,

@@ -125,28 +125,38 @@ def _degrees(indptr, verts):
     return _take(indptr, verts + 1) - _take(indptr, verts)
 
 
-def _init_roots(g: DeviceGraph, plans: PatternPlan, block_start: int,
+def _init_roots(g: DeviceGraph, plans: PatternPlan, block_start,
                 cfg: MatchConfig):
     """Root frontier for one block: vertices in [block_start, block_start+R)
     matching each pattern's root label + degree filters, compacted into
-    (P, cap, k).  Rows past ``cap`` are dropped."""
+    (P, cap, k).  Rows past ``cap`` are dropped.
+
+    ``block_start`` is one python int shared by the P rows (a same-k
+    bucket), or a (P,) int tensor with one start per row (the blocks axis
+    of `batched.collect_pattern_embeddings`: P copies of one plan); a start
+    ≥ n matches no root."""
     R, cap, k = cfg.root_block, cfg.cap, plans.k
     P = plans.root_label.shape[0]
     dev = g.labels.device
-    verts = int(block_start) + torch.arange(R, dtype=torch.int32, device=dev)
+    lanes = torch.arange(R, dtype=torch.int32, device=dev)
+    if isinstance(block_start, torch.Tensor):
+        verts = block_start.to(device=dev, dtype=torch.int32)[:, None] \
+            + lanes[None]                                      # (P, R)
+    else:
+        verts = (int(block_start) + lanes)[None]               # (1, R)
     in_range = verts < g.n
     safe = verts.clamp(0, g.n - 1)
     ok = (
-        in_range[None]
-        & (_take(g.labels, safe)[None] == plans.root_label[:, None])
-        & (_degrees(g.out_indptr, safe)[None] >= plans.root_min_out[:, None])
-        & (_degrees(g.in_indptr, safe)[None] >= plans.root_min_in[:, None])
+        in_range
+        & (_take(g.labels, safe) == plans.root_label[:, None])
+        & (_degrees(g.out_indptr, safe) >= plans.root_min_out[:, None])
+        & (_degrees(g.in_indptr, safe) >= plans.root_min_in[:, None])
     )                                                          # (P, R)
     pos = ok.cumsum(1) - 1
     keep = ok & (pos < cap)
     emb = torch.full((P, cap, k), -1, dtype=torch.int32, device=dev)
     p_idx, r_idx = keep.nonzero(as_tuple=True)
-    emb[p_idx, pos[p_idx, r_idx], 0] = safe[r_idx]
+    emb[p_idx, pos[p_idx, r_idx], 0] = safe.expand(P, R)[p_idx, r_idx]
     count = ok.sum(1).clamp(max=cap).to(torch.int32)
     return emb, count
 
@@ -276,7 +286,8 @@ def match_block(g: DeviceGraph, plans: PatternPlan, block_start: int,
     Args:
       g:    DeviceGraph (int32 tensors on one device).
       plans: PatternPlan with a leading pattern axis P (`stack_plans`).
-      block_start: first root vertex of this block (python int).
+      block_start: first root vertex of this block (python int), or a
+            (P,) int tensor of per-row first roots (see `_init_roots`).
       cfg:  MatchConfig.
 
     Returns (emb, count, found, overflowed, peak), each with leading axis P:

@@ -89,7 +89,7 @@ SAMPLED_MARGIN = 0.9
 
 # planes of the reference that need modules this port does not have yet
 UNPORTED_PLANES = {
-    "distributed": "ROADMAP Queue 1 item 7 (core/distributed.py)",
+    "distributed": "ROADMAP Queue 1 item 3 (core/distributed.py)",
 }
 
 

@@ -16,20 +16,36 @@ plane and geometry from the port's calibration (``--calibration``, else
 ``./planner_calibration_torch.json``, else the built-in H100 fit); a run
 with sampled levels folds its measured escalation fraction into that file.
 ``--json`` writes the reference launcher's schema.
+
+``--checkpoint-dir`` makes the run a resumable *session*
+(`repro_torch.runtime`): the full mining state is snapshotted at every
+level boundary and every ``--checkpoint-every`` root blocks, SIGTERM or
+SIGINT stops the run at its next snapshot with exit code 75
+(`EXIT_PREEMPTED`), and rerunning the same command line (``--resume``
+makes a missing snapshot an error) continues it to the uninterrupted
+run's result.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import signal
 import sys
 import time
+from typing import Optional
 
 from repro_torch.core import MatchConfig, MiningConfig, mine
 from repro_torch.core.flexis import tau_threshold
 from repro_torch.core.planner import persist_escalation_fraction
 from repro_torch.data.synthetic import PAPER_DATASETS, paper_dataset
 from repro_torch.device import resolve_device
+
+# distinct "preempted, resumable" status: the run was stopped on request
+# (SIGTERM/SIGINT) after committing a final snapshot — rerunning the same
+# command line resumes it.  75 = BSD EX_TEMPFAIL ("temporary failure,
+# retry"), which is exactly the contract.
+EXIT_PREEMPTED = 75
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,6 +110,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cap", type=int, default=16384)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, help="write result JSON here")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="run as a resumable session: snapshot the full "
+                         "mining state into this directory (atomic "
+                         "manifest/COMMIT protocol, see repro_torch.runtime)")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="snapshot cadence in carried-state updates (root "
+                         "blocks on the batched plane, sample groups on the "
+                         "sampled plane); 0 = level boundaries only")
+    ap.add_argument("--resume", action="store_true",
+                    help="require a committed snapshot in --checkpoint-dir "
+                         "and continue it (without this flag a snapshot is "
+                         "still picked up when present; --resume makes a "
+                         "missing one an error instead of a fresh start)")
     return ap
 
 
@@ -117,10 +146,79 @@ def result_json(args, res) -> dict:
     }
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+class _Preemption:
+    """SIGTERM/SIGINT stop a session run at its next snapshot.
 
+    Installed before the graph is loaded, so a signal that arrives while
+    the graph is built or the kernels compile still ends in one committed
+    snapshot (the session's first) and exit `EXIT_PREEMPTED` — never in a
+    kill mid-write."""
+
+    def __init__(self):
+        self.session = None
+        self.requested = False
+        self._prev: dict = {}
+
+    def __enter__(self) -> "_Preemption":
+        self._prev = {s: signal.signal(s, self._on_signal)
+                      for s in (signal.SIGTERM, signal.SIGINT)}
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+
+    def _on_signal(self, signum, frame) -> None:
+        print(f"[mine] caught signal {signum}: finishing the current "
+              f"snapshot, then exiting resumable", flush=True)
+        self.requested = True
+        if self.session is not None:
+            self.session.request_preempt()
+
+    def attach(self, session) -> None:
+        self.session = session
+        if self.requested:
+            session.request_preempt()
+
+
+def _run_session(args, g, cfg, device, preemption: _Preemption):
+    """Mine as a resumable session; None when preempted (snapshot
+    committed), else the `MiningResult`."""
+    from repro_torch.runtime import MiningSession, PreemptedError
+    from repro_torch.train import checkpoint as ckpt
+
+    session = MiningSession(
+        g, cfg, args.checkpoint_dir, device=device,
+        calibration=args.calibration,
+        checkpoint_every=args.checkpoint_every,
+        resume="must" if args.resume else "auto",
+        meta={"dataset": args.dataset, "scale": args.scale,
+              "seed": args.seed})
+    preemption.attach(session)
+    try:
+        res = session.run()
+    except PreemptedError as e:
+        ckpt.wait_pending(raise_errors=False)  # flush async writes
+        print(f"[mine] preempted: {e}")
+        res = None
+    print(f"[mine] session: {session.snapshots_written} snapshots "
+          f"written under {args.checkpoint_dir}")
+    return res
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
+    device = resolve_device(args.device)
+    if not args.checkpoint_dir:
+        return _mine(args, device, None)
+    with _Preemption() as preemption:
+        return _mine(args, device, preemption)
+
+
+def _mine(args, device, preemption: Optional[_Preemption]) -> int:
     t0 = time.monotonic()
     g = paper_dataset(args.dataset, scale=args.scale, seed=args.seed)
     print(f"[mine] {args.dataset}×{args.scale}: |V|={g.n} |E|={g.n_edges} "
@@ -138,7 +236,12 @@ def main(argv=None) -> int:
             **({"root_block": args.root_block}
                if args.root_block is not None else {})),
     )
-    res = mine(g, cfg, device=device, calibration=args.calibration)
+    if preemption is not None:
+        res = _run_session(args, g, cfg, device, preemption)
+        if res is None:
+            return EXIT_PREEMPTED
+    else:
+        res = mine(g, cfg, device=device, calibration=args.calibration)
 
     print(f"[mine] done in {res.elapsed_s:.2f}s on {device}"
           f"{' (TIMED OUT)' if res.timed_out else ''}")

@@ -306,6 +306,113 @@ def test_sampled_replay_launches_mis_bitmap(cuda):
                                                        e.embeddings_found)
 
 
+def _session_summary(r):
+    per_level = {lvl: {k: v for k, v in st.items() if k != "wall_s"}
+                 for lvl, st in r.per_level.items()}
+    return ([(p.key(), s) for p, s in r.frequent],
+            [(s.support, s.embeddings_found, s.blocks_run, s.overflowed,
+              s.max_count, s.dispatches) for s in r.stats], per_level,
+            r.searched, r.peak_device_bytes)
+
+
+@pytest.mark.parametrize("metric,execution", [("mis", "batched"),
+                                              ("frac", "batched"),
+                                              ("mis", "sampled")])
+def test_session_killed_on_cuda_resumes_to_cpu_result(cuda, tmp_path,
+                                                      metric, execution):
+    # a session on the card killed mid-level (its in-flight state copied
+    # off the card) and resumed on the card equals the CPU session
+    from repro_torch.runtime import (
+        FaultPlan, FaultSpec, InjectedCrash, MiningSession, faults,
+    )
+
+    g = random_graph(400, 3, 3, seed=17)
+    match = MatchConfig.for_graph(g, cap=4096, root_block=32, chunk=8)
+    cfg = MiningConfig(sigma=6, metric=metric, max_pattern_size=3,
+                       complete=metric == "mis" and execution == "batched",
+                       execution=execution, sample_fraction=0.5, match=match)
+    want = MiningSession(g, cfg, tmp_path / "cpu", device="cpu").run()
+    faults.install(FaultPlan([FaultSpec("session.snapshot", "crash", at=4)]))
+    try:
+        with pytest.raises(InjectedCrash):
+            MiningSession(g, cfg, tmp_path / "cuda", device=cuda).run()
+    finally:
+        faults.clear()
+    frontier_expand.launches = 0
+    got = MiningSession(g, cfg, tmp_path / "cuda", device=cuda).run()
+    assert frontier_expand.launches > 0
+    assert _session_summary(got) == _session_summary(want)
+
+
+def test_resumed_state_leaves_are_cuda(cuda, tmp_path):
+    from repro_torch.runtime import (
+        FaultPlan, FaultSpec, InjectedCrash, MiningSession, faults,
+        load_session,
+    )
+
+    g = random_graph(400, 3, 3, seed=17)
+    match = MatchConfig.for_graph(g, cap=4096, root_block=32, chunk=8)
+    cfg = MiningConfig(sigma=6, max_pattern_size=3, complete=True,
+                       execution="batched", match=match)
+    faults.install(FaultPlan([FaultSpec("session.snapshot", "crash", at=3)]))
+    try:
+        with pytest.raises(InjectedCrash):
+            MiningSession(g, cfg, tmp_path, device=cuda,
+                          async_saves=False).run()
+    finally:
+        faults.clear()
+    state, _ = load_session(tmp_path, cfg, device=cuda)
+    gs = state.cursor.inflight_group
+    assert all(t.device.type == "cuda" and t.dtype == torch.int32
+               for t in gs.state)
+    # a CPU bitmap handed to the kernel's wrapper with a CUDA table raises
+    # instead of running the plain version
+    from repro_torch.kernels.mis_bitmap.ops import mis_greedy_update_kernel
+    emb = torch.full((gs.state[0].shape[0], 8, 2), -1, dtype=torch.int32,
+                     device=cuda)
+    n_valid = torch.zeros(emb.shape[0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        mis_greedy_update_kernel(gs.state[0].cpu(), gs.state[1], emb,
+                                 n_valid, n_valid, 2)
+
+
+def test_mis_exact_collector_cuda_equals_cpu(cuda):
+    from repro_torch.core.batched import collect_pattern_embeddings
+    from repro_torch.core.flexis import initial_candidates
+    from repro_torch.core.generation import generate_new_patterns
+
+    # a cap no level overflows: under overflow the CPU's two-phase pipeline
+    # and the single-phase kernel keep different rows (both flag it)
+    g = rmat_graph(600, 4000, n_labels=3, seed=8, undirected=True)
+    cfg = dataclasses.replace(MatchConfig.for_graph(g, root_block=32),
+                              cap=65536)
+    order = np.random.default_rng(0).permutation(
+        -(-g.n // cfg.root_block)).astype(np.int64)
+    k2 = initial_candidates(g)
+    for pat in k2[:2] + generate_new_patterns(k2)[:2]:
+        plan = make_plan(pat, g)
+        want = collect_pattern_embeddings(DeviceGraph.from_host(g, "cpu"),
+                                          plan, cfg, g.n, block_order=order)
+        frontier_expand.launches = 0
+        got = collect_pattern_embeddings(DeviceGraph.from_host(g, cuda),
+                                         plan, cfg, g.n, block_order=order)
+        assert frontier_expand.launches == got[5] * (pat.k - 1)
+        assert not got[2]
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+
+
+def test_mine_mis_exact_cuda_equals_cpu(cuda):
+    g = rmat_graph(24, 60, n_labels=4, seed=9, undirected=True)
+    match = MatchConfig.for_graph(g, cap=1024, root_block=32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        res[dev] = _session_summary(mine(g, MiningConfig(
+            sigma=2, lam=1.0, metric="mis_exact", max_pattern_size=3,
+            match=match), device=dev))
+    assert res["cpu"] == res["cuda"] and res["cuda"][0]
+
+
 @pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
 def test_flash_attention_matches_plain(cuda, case):
     # reference test shapes × {f32, bf16}, MQA, window × softcap, the
