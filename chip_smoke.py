@@ -5,7 +5,7 @@
 Phases (any failure raises, and the script exits non-zero without its last
 line):
 
-  1. build   — compile the five CUDA kernels from ``src/repro_torch/csrc``
+  1. build   — compile the nine CUDA kernels from ``src/repro_torch/csrc``
                (one nvcc per source, in parallel), print the build time and
                the ptxas reports; fails unless the flash library's SASS holds
                HGMMA (tensor-core) instructions;
@@ -29,7 +29,16 @@ line):
                72, 128, ragged B·T, a table view one element off its
                alignment; exact at H = 1, else `BAG_TOL`)
                and the gather-aggregate (`AGG_CASES`: Dmax 1, 15, 40, F 7,
-               8, 128, 602, ragged N; `AGG_TOL`);
+               8, 128, 602, ragged N; `AGG_TOL`); the three backward
+               kernels against autograd of their plain forwards on f32
+               copies, each launched twice with identical bytes: the
+               flash backward (`FLASH_BWD_CASES`: the trainer's qwen3
+               shape, ragged S with GQA, window + softcap, non-causal,
+               hd 16 MQA, bf16 and f32), the bag backward
+               (`BAG_BWD_CASES`: repeated ids, pads, ids ≥ R, T 26, D 9)
+               and the aggregate transpose (`AGG_T_CASES`, hub nodes); the
+               fused AdamW against its plain version, bit for bit
+               (`ADAMW_CASES`);
   4. golden  — the port's mining CLI on cuda for gnutella ×0.1, σ = 20, mis,
                batched, equal to the reference CLI's committed --json; then
                the same flags under ``--execution auto`` (the planner at
@@ -75,6 +84,12 @@ line):
                the forward loss on the card; counts zeroed just before and
                read just after, two gather-aggregate launches per forward;
                logits equal to the same forward with the plain aggregate;
+               then train-gnn: SAGE_TRAIN_STEPS train steps (loss, grads,
+               AdamW) over the sampler's blocks 0.., counts zeroed and
+               read around them (two aggregates and one transpose a
+               step), block 0's loss falling, the transpose timed at
+               layer 1 and held there against autograd of the plain
+               aggregate (f32 copies), launched twice (identical bytes);
   9. kernels — mining kernels vs plain versions again on real blocks of the
                mico graph at the main path's shapes (the frontier's hub
                block at level 2 also by pass, with its random loads and
@@ -103,7 +118,36 @@ line):
                the API on the card and on the CPU, on a graph inside the
                reference's 60-embedding limit: equal results; prints the
                collector's dispatches and frontier launches);
- 11. the last line: {"ok": true, "device": {...}}.
+ 11. train   — train-lm: the trainer CLI (``repro_torch.launch.train``)
+               at qwen3-1.7b's full width and depth, `TRAIN_FLAGS` (8
+               steps of batch 4 × 1 024, cut from train_4k), counts
+               zeroed and read around it (flash forward and backward once
+               a layer a step, AdamW once a parameter a step), a falling
+               loss, its step time, tokens/s,
+               peak memory and the ~21 GB final checkpoint (deleted
+               after); then the flash backward timed at the per-layer
+               shape (held against autograd of the plain version there)
+               and AdamW at the embedding leaf (bit for bit against its
+               plain version there; ``torch._fused_adamw_`` timed beside
+               it, there and over all leaves).  train-resume, in a child
+               process with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (the other
+               phases keep cuBLAS's default workspace): the same width at
+               2 layers under
+               ``torch.use_deterministic_algorithms`` (warn_only: the
+               ops without a deterministic path are printed), once
+               uninterrupted and once cut by a stalled step past
+               ``--step-budget-s`` (exit 75) and resumed: the final
+               checkpoints equal byte for byte.  train-dlrm: dlrm-rm2
+               at full width, `DLRM_TRAIN_STEPS` train_batch steps of
+               65 536 (f32 tables cast to bf16 each step, the bag and its
+               backward once a step), the first batch's loss falling;
+               the table cast and the bag backward timed, the bag
+               backward held against autograd of the plain bag at the
+               first batch's bags (f32 copies, a table at a time) and
+               launched twice (identical bytes);
+ 12. the kernels JSON line (all nine kernels; the backward kernels' and
+     AdamW's launches from the training phases), then the last line:
+     {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
 nothing of the JAX package ``repro``.
@@ -113,6 +157,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -438,14 +483,26 @@ def _counters() -> dict:
     from repro_torch.kernels.frontier_expand.kernel import frontier_expand
     from repro_torch.kernels.mis_bitmap.kernel import mis_bitmap_select
 
-    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
-    from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
+    from repro_torch.kernels.adamw.kernel import adamw_fused
+    from repro_torch.kernels.embedding_bag.kernel import (
+        embedding_bag_bwd_tbh, embedding_bag_tbh,
+    )
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_bhsd,
+    )
+    from repro_torch.kernels.gather_aggregate.kernel import (
+        gather_aggregate_nf, gather_aggregate_t_nf,
+    )
 
     return {"frontier_expand": frontier_expand,
             "mis_bitmap": mis_bitmap_select,
             "flash_attention": flash_attention_bhsd,
             "embedding_bag": embedding_bag_tbh,
-            "gather_aggregate": gather_aggregate_nf}
+            "gather_aggregate": gather_aggregate_nf,
+            "flash_attention_bwd": flash_attention_bwd_bhsd,
+            "embedding_bag_bwd": embedding_bag_bwd_tbh,
+            "gather_aggregate_t": gather_aggregate_t_nf,
+            "adamw": adamw_fused}
 
 
 def _zero_counts() -> None:
@@ -1086,8 +1143,10 @@ SAGE_REPS = 5
 
 
 def phase_gnn(dev) -> tuple:
-    """graphsage-reddit's forward loss on block 0 of the port's sampler;
-    returns (gather-aggregate launches in the run, the kernel row)."""
+    """graphsage-reddit's forward loss on block 0 of the port's sampler,
+    under ``torch.inference_mode()``; returns (gather-aggregate launches in
+    the run, the kernel row, the sampler and the node data for the
+    training phase)."""
     import numpy as np
     from unittest import mock
 
@@ -1131,10 +1190,14 @@ def phase_gnn(dev) -> tuple:
          f"15: {float((deg[seeds] >= 15).mean()):.3f}; sampled in "
          f"{sample_s:.2f} s")
 
+    def forward():
+        with torch.inference_mode():
+            return loss_fn(model, gb)
+
     _zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    ms = _wall_ms(lambda: loss_fn(model, gb), SAGE_REPS)
-    loss = loss_fn(model, gb)
+    ms = _wall_ms(forward, SAGE_REPS)
+    loss = forward()
     torch.cuda.synchronize()
     forwards = SAGE_REPS + 2
     launches = _read_counts()["gather_aggregate"]
@@ -1149,10 +1212,11 @@ def phase_gnn(dev) -> tuple:
     if not torch.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss}")
 
-    got = graphsage.sage_apply(model, gb).float()
-    with mock.patch.object(graphsage, "gather_aggregate",
-                           gather_aggregate_ref):
-        want = graphsage.sage_apply(model, gb).float()
+    with torch.inference_mode():
+        got = graphsage.sage_apply(model, gb).float()
+        with mock.patch.object(graphsage, "gather_aggregate",
+                               gather_aggregate_ref):
+            want = graphsage.sage_apply(model, gb).float()
     # the same bf16 inputs, f32 sums in the same order and one rounding:
     # the aggregates, and so the logits, must be equal
     err = float((got - want).abs().max())
@@ -1214,7 +1278,10 @@ def phase_gnn(dev) -> tuple:
          f"sparse_mm_ms={library_ms:.4f} ({str(lib_dtype)[6:]}, max abs diff "
          f"to the kernel {lib_err:.3g}) bound_ms={row['bound_ms']:.4f} "
          f"({nbytes} bytes)")
-    return launches, row
+    del model
+    torch.cuda.empty_cache()
+    return launches, row, {"sampler": sampler, "feats": feats,
+                           "labels": labels}
 
 
 def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
@@ -1356,10 +1423,659 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# training (phase 11; train-gnn runs after phase 8)
+# ---------------------------------------------------------------------------
+
+# the trainer at full width: qwen3-1.7b's 28 layers, cut from train_4k's
+# 256 × 4 096 to batch 4 × 1 024 so that masters, moments, grads and
+# activations fit one card without sharding (PERF.md)
+TRAIN_FLAGS = ["--arch", "qwen3-1.7b", "--steps", "8", "--batch", "4",
+               "--seq", "1024", "--log-every", "1", "--ckpt-every", "100"]
+# the kill-and-resume: the same width at 2 layers (checkpoints ~5 GB), cut
+# by a stalled step 2 under --step-budget-s, then resumed
+RESUME_LAYERS, RESUME_STEPS, RESUME_STALL_AT, RESUME_BUDGET_S = 2, 4, 3, 10
+DLRM_TRAIN_STEPS = 4
+SAGE_TRAIN_STEPS = 4
+
+
+def phase_backward_parity(dev) -> dict:
+    """The three backward kernels against autograd of their plain forwards
+    on f32 copies, each launched twice (identical bytes), and the fused
+    AdamW against its plain version (bit for bit); the worst error of
+    each."""
+    from repro_torch.testing.parity import (
+        ADAMW_CASES, AGG_T_CASES, AGG_T_TOL, BAG_BWD_CASES, BAG_BWD_TOL,
+        FLASH_BWD_CASES, FLASH_BWD_TOL, adamw_case, agg_t_case, bag_bwd_case,
+        flash_bwd_case,
+    )
+
+    worst = {}
+    for name, cases, fn, tol in (
+            ("flash_attention_bwd", FLASH_BWD_CASES, flash_bwd_case,
+             FLASH_BWD_TOL),
+            ("embedding_bag_bwd", BAG_BWD_CASES, bag_bwd_case, BAG_BWD_TOL),
+            ("gather_aggregate_t", AGG_T_CASES, agg_t_case, AGG_T_TOL)):
+        errs = {case[0]: fn(case, dev) for case in cases}
+        worst[name] = max(errs.values())
+        _log(f"parity: {name} == autograd of its plain version on "
+             f"{len(cases)} cases (tolerance {tol}), a second launch "
+             f"byte-identical; max_abs_err by case: "
+             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    worst["adamw"] = max(adamw_case(case, dev) for case in ADAMW_CASES)
+    _log(f"parity: adamw == its plain version bit for bit on "
+         f"{len(ADAMW_CASES)} cases ({', '.join(c[0] for c in ADAMW_CASES)})")
+    return worst
+
+
+def _train_cli(flags, log: Path) -> tuple:
+    """The trainer CLI in this process on cuda; (rc, its stdout)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as cli
+
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, s):
+            buf.write(s)
+            sys.__stdout__.write(s)
+            return len(s)
+
+    with contextlib.redirect_stdout(Tee()):
+        rc = cli.main(flags + ["--device", "cuda"])
+    sys.stdout.flush()
+    log.write_text(buf.getvalue())
+    return rc, buf.getvalue()
+
+
+def _losses(text: str) -> list:
+    import re
+
+    return [float(v) for v in
+            re.findall(r"\[train\] step=\d+ loss=([0-9.]+)", text)]
+
+
+def _flash_bwd_row(dev) -> dict:
+    """The flash backward at the trainer's per-layer shape: held against
+    autograd of the plain version on f32 copies (`FLASH_BWD_TOL`) and
+    launched twice (identical bytes); time beside its bound, the plain
+    version's and SDPA's backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd, flash_attention_bwd_bhsd,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.testing.parity import (
+        FLASH_BWD_TOL, flash_inputs, grads_close,
+    )
+
+    cfg = get_arch("qwen3-1.7b").cfg
+    B, S = 4, 1024
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, dev, seed=2)
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, S, hd).contiguous()
+                  for t in (q, k, v))
+    o, lse = flash_attention_bhsd(qf, kf, vf, causal=True, return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(3), device=dev).to(o.dtype)
+    got = flash_attention_bwd_bhsd(qf, kf, vf, o, do, lse, causal=True)
+    if not all(map(torch.equal, got, flash_attention_bwd_bhsd(
+            qf, kf, vf, o, do, lse, causal=True))):
+        raise AssertionError("flash_attention_bwd: a second launch at the "
+                             "trainer's shape gave other bytes")
+    ms = _time_ms(lambda: flash_attention_bwd_bhsd(qf, kf, vf, o, do, lse,
+                                                   causal=True), reps=10)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_ref(*leaves, causal=True)
+    dref = do.float().reshape(B, H, S, hd).transpose(1, 2)
+    want = torch.autograd.grad(out, leaves, dref, retain_graph=True)
+    err = max(grads_close(f"flash_attention_bwd (trainer's shape) d{n}",
+                          g.view(B, -1, S, hd).transpose(1, 2), w,
+                          scaled=FLASH_BWD_TOL[torch.bfloat16])
+              for n, g, w in zip("qkv", got, want))
+    del got, want
+    plain_ms = _time_ms(lambda: torch.autograd.grad(out, leaves, dref,
+                                                    retain_graph=True), reps=3)
+    del out
+    q4, k4, v4 = (t.view(B, -1, S, hd).detach().requires_grad_()
+                  for t in (qf, kf, vf))
+    sd = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                        enable_gqa=True)
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        sd, (q4, k4, v4), do.view(B, H, S, hd), retain_graph=True), reps=10)
+    # five products of 2·hd FLOPs per causal-live pair (2.5× the
+    # forward's two); bytes: q, k, v, o, dO and dq, dk, dv once (bf16), lse
+    flops = 2.5 * 4.0 * hd * B * H * S * (S + 1) / 2
+    nbytes = 2 * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
+    t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "max_abs_err": err}
+    _log(f"kernels: flash_attention_bwd B={B} S={S} H={H} KV={KV} hd={hd} "
+         f"bf16 causal: == autograd of the plain version on f32 copies "
+         f"(within {FLASH_BWD_TOL[torch.bfloat16]}·max|grad|, max_abs_err="
+         f"{err:.3g}), a second launch byte-identical; ms={ms:.4f} "
+         f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms={plain_ms:.3f} "
+         f"sdpa_bwd_ms={library_ms:.4f} bound_ms={row['bound_ms']:.4f}")
+    return row
+
+
+def phase_train_lm(out: Path, dev) -> tuple:
+    """qwen3-1.7b trained at full width through the trainer CLI: 8 steps at
+    batch 4 × 1 024, a falling loss, one final checkpoint (then deleted);
+    returns (launches by kernel, the flash backward's and AdamW's kernel
+    rows)."""
+    import shutil
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_arch("qwen3-1.7b").cfg
+    ckpt_dir = out / "train_lm"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.monotonic()
+    rc, text = _train_cli(TRAIN_FLAGS + ["--ckpt-dir", str(ckpt_dir)],
+                          out / "train_lm.log")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = _read_counts()
+    if rc != 0:
+        raise RuntimeError(f"trainer exited {rc}")
+    losses = _losses(text)
+    steps = int(TRAIN_FLAGS[TRAIN_FLAGS.index("--steps") + 1])
+    launches = {k: counts[k] for k in ("flash_attention",
+                                       "flash_attention_bwd", "adamw")}
+    n_leaves = len(list(Transformer(cfg, device="meta")
+                        .parameters()))
+    ck_bytes = sum(f.stat().st_size for f in (ckpt_dir / f"step_{steps - 1:08d}")
+                   .iterdir())
+    _log(f"train-lm: qwen3-1.7b {cfg.n_layers} layers d_model {cfg.d_model} "
+         f"vocab {cfg.vocab}, {steps} steps at batch 4 x seq 1024: "
+         f"wall_s={wall:.1f} losses={losses} launches={launches} final "
+         f"checkpoint {ck_bytes} bytes")
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train-lm: {len(losses)} finite losses logged "
+                             f"of {steps}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train-lm: the loss did not fall: {losses}")
+    if launches != {"flash_attention": steps * cfg.n_layers,
+                    "flash_attention_bwd": steps * cfg.n_layers,
+                    "adamw": steps * n_leaves}:
+        raise AssertionError(f"train-lm: every step must launch the flash "
+                             f"forward and backward once per layer and "
+                             f"AdamW once per parameter ({n_leaves}): "
+                             f"{launches}")
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+    return launches, _flash_bwd_row(dev), _adamw_row(dev, cfg)
+
+
+def _adamw_row(dev, cfg) -> dict:
+    """The fused AdamW at the LM's largest leaf (the embedding, vocab ×
+    d_model f32): equal to its plain version bit for bit there; its time
+    beside its bound, the plain version's and the library's multi-tensor
+    update (``torch._fused_adamw_``, which rounds in another order: its
+    largest difference is printed); then both over every leaf of the model
+    (a launch a leaf against one call)."""
+    from repro_torch.kernels.adamw.kernel import adamw_fused
+    from repro_torch.kernels.adamw.ref import adamw_ref
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.optimizer import AdamWConfig
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    opt = AdamWConfig()
+    step = 2   # the scalars' bias corrections are 1 − b1², 1 − b2²
+    scalars = torch.tensor([0.5, 3e-4, 1 - opt.b1 ** step,
+                            1 - opt.b2 ** step], device=dev)
+    inv_scale = (1 / scalars[0]).reshape(())
+    lr = scalars[1].clone().reshape(())
+
+    def library(ps, gs, ms_, vs, steps):
+        torch._fused_adamw_(
+            ps, gs, ms_, vs, [], steps, lr=lr, beta1=opt.b1, beta2=opt.b2,
+            weight_decay=opt.weight_decay, eps=opt.eps, amsgrad=False,
+            maximize=False, grad_scale=inv_scale, found_inf=None)
+
+    shapes = [t.shape for t in Transformer(cfg, device="meta").parameters()]
+    steps = [torch.full((), float(step), device=dev) for _ in shapes]
+
+    n = cfg.vocab * cfg.d_model
+    p, g, m = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    v = torch.rand(n, generator=gen, device=dev)
+    want = [t.clone() for t in (p, m, v)]
+    adamw_ref(want[0], g, want[1], want[2], scalars, opt)
+    got = [t.clone() for t in (p, m, v)]
+    adamw_fused(got[0], g, got[1], got[2], scalars, opt)
+    if not all(map(torch.equal, got, want)):
+        raise AssertionError("adamw: the kernel differs from its plain "
+                             "version at the embedding leaf")
+    lib = [t.clone() for t in (p, m, v)]
+    library([lib[0]], [g], [lib[1]], [lib[2]], steps[:1])
+    lib_err = max(float((a - b).abs().max()) for a, b in zip(lib, want))
+    del got, want, lib
+    ms = _time_ms(lambda: adamw_fused(p, g, m, v, scalars, opt), reps=10)
+    plain_ms = _time_ms(lambda: adamw_ref(p, g, m, v, scalars, opt), reps=3)
+    library_ms = _time_ms(lambda: library([p], [g], [m], [v], steps[:1]),
+                          reps=10)
+    nbytes = 7 * 4 * n          # p, g, m, v read; p, m, v written
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, 20 * n / F32_FLOPS_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": 0.0}
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    P, G, M = ([torch.randn(s, generator=gen, device=dev) for s in shapes]
+               for _ in range(3))
+    V = [torch.rand(s, generator=gen, device=dev) for s in shapes]
+    n_all = sum(t.numel() for t in P)
+    all_ms = _time_ms(lambda: [adamw_fused(*t, scalars, opt)
+                               for t in zip(P, G, M, V)], reps=3)
+    all_lib_ms = _time_ms(lambda: library(P, G, M, V, steps), reps=3)
+    _log(f"kernels: adamw n={n} f32 (the embedding leaf): == its plain "
+         f"version bit for bit; ms={ms:.4f} ({nbytes / ms / 1e6:.1f} GB/s) "
+         f"plain_ms={plain_ms:.3f} torch._fused_adamw__ms={library_ms:.4f} "
+         f"(max abs diff to the plain version {lib_err:.3g}) "
+         f"bound_ms={row['bound_ms']:.4f}; all {len(shapes)} leaves "
+         f"({n_all} elements): ms={all_ms:.4f} ({len(shapes)} launches) "
+         f"torch._fused_adamw__ms={all_lib_ms:.4f} (one call) bound_ms="
+         f"{7 * 4 * n_all / HBM_BYTES_S * 1e3:.4f}")
+    del P, G, M, V
+    torch.cuda.empty_cache()
+    return row
+
+
+def _checkpoint_leaves_equal(a: Path, b: Path) -> int:
+    """Both committed steps hold the same leaves, byte for byte (read one
+    pair at a time); returns the bytes compared."""
+    import numpy as np
+
+    ma = json.loads((a / "manifest.json").read_text())
+    mb = json.loads((b / "manifest.json").read_text())
+    if ma["treedef"] != mb["treedef"] or ma["extra"] != mb["extra"]:
+        raise AssertionError(f"checkpoints differ in tree or extra: "
+                             f"{ma['extra']} vs {mb['extra']}")
+    total = 0
+    for i in range(ma["n_leaves"]):
+        x = np.load(a / f"arr_{i:05d}.npy")
+        y = np.load(b / f"arr_{i:05d}.npy")
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"leaf {i} differs between the resumed and "
+                                 f"the uninterrupted run")
+        total += x.nbytes
+    return total
+
+
+def phase_train_resume(out: Path) -> None:
+    """The trainer at full width but 2 layers, under deterministic
+    algorithms: an uninterrupted run, and a run whose step 2 stalls past
+    --step-budget-s (exit 75) then resumes; the final checkpoints must be
+    equal byte for byte."""
+    import shutil
+    import warnings
+    from unittest import mock
+
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.launch import train as cli
+    from repro_torch.runtime import faults
+
+    arch = dataclasses.replace(
+        qwen3_1_7b.ARCH, cfg=dataclasses.replace(qwen3_1_7b.CONFIG,
+                                                 n_layers=RESUME_LAYERS))
+    flags = ["--arch", "qwen3-1.7b", "--steps", str(RESUME_STEPS), "--batch",
+             "4", "--seq", "1024", "--log-every", "1", "--ckpt-every", "100"]
+    dirs = {k: out / f"train_resume_{k}" for k in ("a", "b")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.monotonic()
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                mock.patch.object(cli, "get_arch", lambda name: arch):
+            warnings.simplefilter("always")
+            rc_a, _ = _train_cli(flags + ["--ckpt-dir", str(dirs["a"])],
+                                 out / "train_resume_a.log")
+            torch.cuda.empty_cache()
+            faults.install(faults.FaultPlan([faults.FaultSpec(
+                "train.step", "stall", at=RESUME_STALL_AT,
+                stall_s=4 * RESUME_BUDGET_S)]))
+            try:
+                rc_cut, cut = _train_cli(
+                    flags + ["--ckpt-dir", str(dirs["b"]), "--step-budget-s",
+                             str(RESUME_BUDGET_S)], out / "train_resume_b1.log")
+            finally:
+                faults.clear()
+            torch.cuda.empty_cache()
+            rc_b, resumed = _train_cli(flags + ["--ckpt-dir", str(dirs["b"])],
+                                       out / "train_resume_b2.log")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    wall = time.monotonic() - t0
+    nondet = sorted({str(w.message).split(".")[0][:160] for w in caught
+                     if "deterministic" in str(w.message)})
+    _log(f"train-resume: ops without a deterministic implementation "
+         f"(warn_only): {nondet or 'none'}")
+    if (rc_a, rc_cut, rc_b) != (0, cli.EXIT_STRAGGLER, 0):
+        raise AssertionError(f"train-resume: exit codes {rc_a}, {rc_cut}, "
+                             f"{rc_b}; want 0, 75, 0")
+    stalled = RESUME_STALL_AT - 1
+    if f"step {stalled} straggled" not in cut or \
+            f"resumed from step {stalled - 1}" not in resumed:
+        raise AssertionError("train-resume: the cut or the resume is not "
+                             "where the stall was")
+    last = f"step_{RESUME_STEPS - 1:08d}"
+    nbytes = _checkpoint_leaves_equal(dirs["a"] / last, dirs["b"] / last)
+    _log(f"train-resume: qwen3-1.7b width, {RESUME_LAYERS} layers, "
+         f"{RESUME_STEPS} steps; step {stalled} stalled past "
+         f"--step-budget-s {RESUME_BUDGET_S} → exit 75, checkpoint of step "
+         f"{stalled - 1}; resumed: final parameters and moments == the "
+         f"uninterrupted run's, byte for byte ({nbytes} bytes); "
+         f"wall_s={wall:.1f}")
+    for d in dirs.values():
+        shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+
+def phase_train_resume_child() -> None:
+    """train-resume in a child process: deterministic cuBLAS needs a fixed
+    workspace (``CUBLAS_WORKSPACE_CONFIG``) set before cuBLAS starts, and
+    this process's phases keep the default one."""
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         "--phase", "train-resume"], env=env,
+                        timeout=600).returncode
+    if rc != 0:
+        raise RuntimeError(f"train-resume exited {rc}")
+
+
+def phase_train_dlrm(dev) -> tuple:
+    """dlrm-rm2 trained at full width: DLRM_TRAIN_STEPS train_batch steps of
+    65 536; the loss on the first batch falls; then the bag backward at the
+    first batch's bags, held against autograd of the plain bag on f32
+    copies (`BAG_BWD_TOL`, a table at a time) and launched twice
+    (identical bytes); returns (launches by kernel, the bag backward's
+    kernel row)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.embedding_bag.kernel import (
+        embedding_bag_bwd_tbh, embedding_bag_tbh,
+    )
+    from repro_torch.kernels.embedding_bag.ops import bag_grad_plan
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models.dlrm import dlrm_loss
+    from repro_torch.testing.parity import BAG_BWD_TOL, grads_close
+    from repro_torch.train.step import init_opt_state
+
+    arch = get_arch("dlrm-rm2")
+    cfg = arch.cfg
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    model = arch.init(torch.Generator(device=dev).manual_seed(0), device=dev,
+                      train=True)
+    state = init_opt_state(model)
+    batches = [arch.inputs("train_batch", seed=0, step=s, device=dev)
+               for s in range(DLRM_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    _log(f"train-dlrm: dlrm-rm2 f32 tables {tuple(model.tables.shape)}, "
+         f"moments and {DLRM_TRAIN_STEPS} batches made in "
+         f"{time.monotonic() - t0:.1f} s")
+    step = arch.step_fn("train_batch")
+    first = batches[0]
+
+    def held_loss():
+        with torch.no_grad():
+            return float(dlrm_loss(model, first["dense"], first["sparse_idx"],
+                                   first["labels"]))
+
+    before = held_loss()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_ms = [], []
+    for x in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, model, state = step(model, state, x["dense"], x["sparse_idx"],
+                                  x["labels"])
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    after = held_loss()
+    launches = {k: counts[k] for k in ("embedding_bag", "embedding_bag_bwd",
+                                       "adamw")}
+    B = arch.batch("train_batch")
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    cast_ms = _time_ms(lambda: model.tables.to(torch.bfloat16), reps=5)
+    _log(f"train-dlrm: batch {B}: losses={losses} first-batch loss "
+         f"{before:.6f} → {after:.6f}; step_ms={[round(m, 3) for m in step_ms]} "
+         f"(median after the first {med:.3f}, examples_per_s="
+         f"{B / med * 1e3:.6g}) f32→bf16 table cast_ms={cast_ms:.4f} "
+         f"max_memory_allocated={peak} launches={launches}")
+    n_leaves = len(list(model.parameters()))
+    if launches != {"embedding_bag": DLRM_TRAIN_STEPS,
+                    "embedding_bag_bwd": DLRM_TRAIN_STEPS,
+                    "adamw": DLRM_TRAIN_STEPS * n_leaves}:
+        raise AssertionError(f"train-dlrm: every step must launch the bag "
+                             f"and its backward once, AdamW once per "
+                             f"parameter ({n_leaves}): {launches}")
+    if not all(map(math.isfinite, losses)) or not after < before:
+        raise AssertionError(f"train-dlrm: the first batch's loss did not "
+                             f"fall: {before} → {after} ({losses})")
+
+    # the backward kernel at the train shape's bags: checked, then timed
+    T, R, D = model.tables.shape
+    ids = first["sparse_idx"]
+    Bn, _, H = ids.shape
+    tables = model.tables.detach().to(torch.bfloat16)
+    del model, state, batches, first
+    torch.cuda.empty_cache()
+    d_out = torch.randn((Bn, T, D), generator=torch.Generator(device=dev)
+                        .manual_seed(4), device=dev).to(torch.bfloat16)
+    plan = bag_grad_plan(ids, None, R, False)
+    plan_ms = _time_ms(lambda: bag_grad_plan(ids, None, R, False), reps=5)
+    got = embedding_bag_bwd_tbh(d_out, plan, T, R)
+    if not torch.equal(got, embedding_bag_bwd_tbh(d_out, plan, T, R)):
+        raise AssertionError("embedding_bag_bwd: a second launch at "
+                             "train_batch's bags gave other bytes")
+    t32 = tables.float().requires_grad_()
+    embedding_bag_ref(t32, ids).backward(d_out.float())
+    rtol, atol = BAG_BWD_TOL[torch.bfloat16]
+    err = max(grads_close(f"embedding_bag_bwd (train_batch) table {t}",
+                          got[t], t32.grad[t], rtol=rtol, atol=atol)
+              for t in range(T))
+    del got, t32
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: embedding_bag_bwd_tbh(d_out, plan, T, R), reps=10)
+    leaf = tables.detach().requires_grad_()
+    ref_out = embedding_bag_ref(leaf, ids)
+    plain_ms = _time_ms(lambda: torch.autograd.grad(
+        ref_out, leaf, d_out, retain_graph=True), reps=3)
+    del ref_out
+    flat = (ids.long() + torch.arange(T, device=dev)[None, :, None] * R
+            ).reshape(Bn * T, H)
+    weight = tables.view(T * R, D).detach().requires_grad_()
+    lib_out = F.embedding_bag(flat, weight, mode="sum")
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_out, weight, d_out.view(Bn * T, D), retain_graph=True), reps=5)
+    del lib_out, weight, leaf
+    # bytes: the dense zero fill of the (T, R, D) gradient, d_out and the
+    # ids read once, the touched rows written; adds: one FMA per id and D
+    n_seg = plan.seg_row.numel()
+    esize = tables.element_size()
+    nbytes = T * R * D * esize + Bn * T * D * esize + Bn * T * H * 4 \
+        + n_seg * D * esize
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 2 * Bn * T * H * D / F32_FLOPS_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    _log(f"kernels: embedding_bag_bwd B={Bn} T={T} R={R} D={D} bf16, "
+         f"{n_seg} segments: == autograd of the plain bag on f32 copies "
+         f"(rtol, atol = {BAG_BWD_TOL[torch.bfloat16]}, max_abs_err="
+         f"{err:.3g}), a second launch byte-identical; "
+         f"ms={ms:.4f} (zero fill + segments; the plan's "
+         f"sort {plan_ms:.4f} ms more) plain_ms={plain_ms:.3f} "
+         f"F.embedding_bag_bwd_ms={library_ms:.4f} bound_ms="
+         f"{row['bound_ms']:.4f} ({nbytes} bytes)")
+    del tables
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def phase_train_gnn(dev, gnn: dict) -> tuple:
+    """graphsage-reddit minibatch_lg trained on the sampler's blocks of the
+    Reddit-sized graph: SAGE_TRAIN_STEPS steps; block 0's loss falls; then
+    the transpose at layer 1 of block 0, held against autograd of the plain
+    aggregate on f32 copies (`AGG_T_TOL`) and launched twice (identical
+    bytes); returns (launches by kernel, the transpose kernel's row)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.sampler import block_graph_batch
+    from repro_torch.kernels.gather_aggregate.kernel import (
+        gather_aggregate_t_nf,
+    )
+    from repro_torch.kernels.gather_aggregate.ops import (
+        in_neighbor_table, out_neighbor_csr,
+    )
+    from repro_torch.kernels.gather_aggregate.ref import gather_aggregate_ref
+    from repro_torch.testing.parity import AGG_T_TOL, grads_close
+    from repro_torch.train.step import init_opt_state
+
+    arch = get_arch("graphsage-reddit")
+    shape = "minibatch_lg"
+    sampler, feats, labels = gnn["sampler"], gnn["feats"], gnn["labels"]
+    model = arch.init(shape, torch.Generator(device=dev).manual_seed(0),
+                      device=dev, train=True)
+    state = init_opt_state(model)
+    loss_fn = arch.loss_fn(shape)
+    step = arch.step_fn(shape)
+    t0 = time.monotonic()
+    gbs = [block_graph_batch(sampler.sample(s), feats, labels)
+           for s in range(SAGE_TRAIN_STEPS)]
+    _log(f"train-gnn: {SAGE_TRAIN_STEPS} blocks sampled in "
+         f"{time.monotonic() - t0:.2f} s")
+
+    def held_loss():
+        with torch.no_grad():
+            return float(loss_fn(model, gbs[0]))
+
+    before = held_loss()
+    _zero_counts()
+    losses, step_ms = [], []
+    for gb in gbs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, model, state = step(model, state, gb)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    counts = _read_counts()
+    after = held_loss()
+    launches = {k: counts[k] for k in ("gather_aggregate",
+                                       "gather_aggregate_t", "adamw")}
+    _log(f"train-gnn: graphsage-reddit {shape}: losses={losses} block-0 "
+         f"loss {before:.6f} → {after:.6f}; step_ms="
+         f"{[round(m, 3) for m in step_ms]} launches={launches}")
+    n_leaves = len(list(model.parameters()))
+    if launches != {"gather_aggregate": 2 * SAGE_TRAIN_STEPS,
+                    "gather_aggregate_t": SAGE_TRAIN_STEPS,
+                    "adamw": SAGE_TRAIN_STEPS * n_leaves}:
+        raise AssertionError(f"train-gnn: every step must launch the "
+                             f"aggregate twice and its transpose once (layer "
+                             f"1's input only), AdamW once per parameter "
+                             f"({n_leaves}): {launches}")
+    if not after < before:
+        raise AssertionError(f"train-gnn: block 0's loss did not fall: "
+                             f"{before} → {after} ({losses})")
+
+    # the transpose at layer 1 of block 0 (its input is (N, d_hidden)), timed
+    gb = gbs[0]
+    nbrs = in_neighbor_table(gb.edge_src, gb.edge_dst, gb.edge_mask,
+                             gb.x.shape[0])
+    N = nbrs.shape[0]
+    Fd = arch.config(shape).d_hidden
+    d_out = torch.randn((N, Fd), generator=torch.Generator(device=dev)
+                        .manual_seed(5), device=dev).to(torch.bfloat16)
+    indptr, dst, deg = out_neighbor_csr(nbrs)
+    csr_ms = _time_ms(lambda: out_neighbor_csr(nbrs), reps=5)
+    got = gather_aggregate_t_nf(d_out, indptr, dst, deg)
+    if not torch.equal(got, gather_aggregate_t_nf(d_out, indptr, dst, deg)):
+        raise AssertionError("gather_aggregate_t: a second launch at layer "
+                             "1's shape gave other bytes")
+    h32 = torch.zeros((N, Fd), dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    gather_aggregate_ref(h32, nbrs, mean=True).backward(d_out.float())
+    rtol, atol = AGG_T_TOL[torch.bfloat16]
+    err = grads_close("gather_aggregate_t (layer 1 of block 0)", got,
+                      h32.grad, rtol=rtol, atol=atol)
+    del got, h32
+    ms = _time_ms(lambda: gather_aggregate_t_nf(d_out, indptr, dst, deg),
+                  reps=20)
+    h = torch.zeros((N, Fd), dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    ref_out = gather_aggregate_ref(h, nbrs, mean=True)
+    # slow: every pad of the padded table clamps to row 0, and autograd's
+    # index backward accumulates ~2 M of them into one row
+    plain_ms = _time_ms(lambda: torch.autograd.grad(
+        ref_out, h, d_out, retain_graph=True), reps=1)
+    del ref_out
+    nnz = int(indptr[-1])
+    counts_i = torch.bincount(dst.long(), minlength=N)
+    crow = indptr.long()
+    vals = (1.0 / deg.clamp(min=1).float())[dst.long()]
+    lib_dtype = torch.bfloat16
+    try:
+        adj_t = torch.sparse_csr_tensor(crow, dst.long(), vals.to(lib_dtype),
+                                        (N, N), check_invariants=False)
+        torch.sparse.mm(adj_t, d_out)
+    except RuntimeError as e:   # a yardstick only: time it in f32 instead
+        _log(f"kernels: torch.sparse.mm has no bf16 CSR path here ({e}); "
+             f"timing it in f32")
+        lib_dtype = torch.float32
+        adj_t = torch.sparse_csr_tensor(crow, dst.long(), vals, (N, N),
+                                        check_invariants=False)
+    d_lib = d_out.to(lib_dtype)
+    library_ms = _time_ms(lambda: torch.sparse.mm(adj_t, d_lib), reps=20)
+    # bytes: the CSR, deg, each destination row read once, every node's
+    # row written; adds: one per (u, i) pair and column
+    rows_read = int((counts_i > 0).sum())
+    esize = d_out.element_size()
+    nbytes = (N + 1 + nnz + N) * 4 + rows_read * Fd * esize + N * Fd * esize
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, 2 * nnz * Fd / F32_FLOPS_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    _log(f"kernels: gather_aggregate_t N={N} F={Fd} nnz={nnz} bf16 mean: "
+         f"== autograd of the plain aggregate on f32 copies (rtol, atol = "
+         f"{AGG_T_TOL[torch.bfloat16]}, max_abs_err={err:.3g}), a second "
+         f"launch byte-identical; "
+         f"ms={ms:.4f} (the out-neighbour CSR's sort {csr_ms:.4f} ms more) "
+         f"plain_ms={plain_ms:.3f} sparse_mm_ms={library_ms:.4f} "
+         f"({str(lib_dtype)[6:]}) bound_ms={row['bound_ms']:.4f} "
+         f"({nbytes} bytes)")
+    del model, state, gbs
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mico-sigma", type=int, default=MICO_SIGMA,
                     help="σ of the full-size mico run (phase 5)")
+    ap.add_argument("--phase", choices=["train-resume"],
+                    help="run this phase alone (the smoke runs train-resume "
+                         "so, in a child process of its own)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[smoke] no CUDA card (torch.cuda.is_available() is False)",
@@ -1367,6 +2083,10 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.phase == "train-resume":
+        OUT.mkdir(parents=True, exist_ok=True)
+        phase_train_resume(OUT)
+        return 0
 
     dev = torch.device("cuda")
     t0 = time.monotonic()
@@ -1375,6 +2095,7 @@ def main(argv=None) -> int:
     worst = phase_parity(dev)
     worst_flash = phase_flash_parity(dev)
     worst_new = phase_bag_agg_parity(dev)
+    worst_bwd = phase_backward_parity(dev)
     OUT.mkdir(parents=True, exist_ok=True)
     phase_golden(OUT)
     _, batched = phase_main(OUT, args.mico_sigma)
@@ -1382,7 +2103,9 @@ def main(argv=None) -> int:
     phase_sampled(OUT, args.mico_sigma, batched)
     flash_launches = phase_serve(OUT)
     bag_launches, bag = phase_recsys(dev)
-    agg_launches, agg = phase_gnn(dev)
+    agg_launches, agg, gnn = phase_gnn(dev)
+    aggt_launches, aggt = phase_train_gnn(dev, gnn)
+    del gnn
     kernels = phase_kernels(dev, launches, worst, args.mico_sigma)
     flash = phase_flash_kernel(dev)
     session, session_launches, meter = phase_session_auto(
@@ -1390,6 +2113,9 @@ def main(argv=None) -> int:
     phase_session_kill(OUT, args.mico_sigma, session, session_launches, meter)
     phase_session_sigterm(OUT)
     phase_mis_exact(dev)
+    lm_launches, flash_bwd, adamw = phase_train_lm(OUT, dev)
+    phase_train_resume_child()
+    bag_bwd_launches, bag_bwd = phase_train_dlrm(dev)
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1412,11 +2138,32 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # the backward kernels replace no TPU kernel: "replaces" names the
+    # forward kernel each differentiates (AdamW: the reference's update it
+    # fuses); launches are the training runs'
+    for name, n, row, replaces in (
+            ("flash_attention_bwd", lm_launches["flash_attention_bwd"],
+             flash_bwd, "src/repro/kernels/flash_attention/kernel.py:27"),
+            ("embedding_bag_bwd", bag_bwd_launches["embedding_bag_bwd"],
+             bag_bwd, "src/repro/kernels/embedding_bag/kernel.py:20"),
+            ("gather_aggregate_t", aggt_launches["gather_aggregate_t"], aggt,
+             "src/repro/kernels/gather_aggregate/kernel.py:24"),
+            ("adamw", lm_launches["adamw"], adamw,
+             "src/repro/train/optimizer.py:59")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": n,
+            "max_abs_err": max(worst_bwd[name], row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:
         raise AssertionError(f"the smoke imported the reference: {bad[:5]}")
     _log(f"total {time.monotonic() - t0:.1f} s")
+    phase_card()    # again, so that the card line also ends the log
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,10 @@ shared by the GNN archs:
   ogb_products    2,449,029 nodes / 61,859,140 edges / d_feat 100 (full-batch)
   molecule        30 nodes / 64 edges × batch 128 (batched small graphs)
 
-The port runs the forward loss of minibatch_lg (one sampled block); the
-training step (loss + grad + AdamW) and the other three shapes raise
-`NotImplementedError` (ROADMAP.md).  The minibatch_lg graph is an R-MAT
+The port runs minibatch_lg (one sampled block a step): its forward loss
+and its training step (loss + grad + AdamW with the arch's `AdamWConfig`,
+lr 1e-3, on a model built with ``train=True``); the other three shapes
+raise `NotImplementedError` (ROADMAP.md).  The minibatch_lg graph is an R-MAT
 stand-in with Reddit's vertex and directed edge counts (`graph`), its
 features and labels are drawn from a seed (`node_data`), and `sampler`
 cuts the blocks.
@@ -26,6 +27,8 @@ from ..data.sampler import NeighborSampler
 from ..data.synthetic import rmat_undirected_graph
 from ..device import resolve_device
 from ..models.gnn.common import GraphBatch
+from ..train.optimizer import AdamWConfig
+from ..train.step import make_train_step
 from .base import ShapeCell, TensorSpec
 
 GNN_SHAPES: Dict[str, ShapeCell] = {
@@ -52,10 +55,14 @@ _REDUCED_META = dict(n_nodes=64, n_edges=256, d_feat=8, n_out=4, n_graphs=1)
 
 @dataclasses.dataclass
 class GNNArch:
-    """model_builder(meta) → (cfg, init_fn(generator, device), loss_fn(model, gb))."""
+    """model_builder(meta) → (cfg, init_fn(generator, device, train),
+    loss_fn(model, gb))."""
 
     arch_name: str
     model_builder: Callable
+    opt: AdamWConfig = dataclasses.field(
+        default_factory=lambda: AdamWConfig(lr=1e-3))
+    family: str = "gnn"
 
     @property
     def name(self) -> str:
@@ -81,10 +88,11 @@ class GNNArch:
         return self._build(shape, reduced)[0]
 
     def init(self, shape: str, generator: torch.Generator, *,
-             reduced: bool = False, device="cuda"):
-        """The model on ``device`` (raises for CUDA without a card)."""
+             reduced: bool = False, device="cuda", train: bool = False):
+        """The model on ``device`` (raises for CUDA without a card); f32
+        trainable masters with ``train``."""
         init_fn = self._build(shape, reduced)[1]
-        return init_fn(generator, resolve_device(device))
+        return init_fn(generator, resolve_device(device), train=train)
 
     # ---- inputs ------------------------------------------------------------
     @staticmethod
@@ -160,6 +168,5 @@ class GNNArch:
         return self._build(shape, reduced)[2]
 
     def step_fn(self, shape: str, *, reduced: bool = False) -> Callable:
-        raise NotImplementedError(
-            f"{shape}: the GNN training step (loss + grad + AdamW) is not "
-            f"ported yet (ROADMAP.md)")
+        """``step(model, opt_state, gb) → (loss, model, opt_state)``."""
+        return make_train_step(self.loss_fn(shape, reduced=reduced), self.opt)

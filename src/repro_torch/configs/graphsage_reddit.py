@@ -13,8 +13,8 @@ def _build(meta):
         n_classes=max(meta["n_out"], 1),
         aggregator="mean",
     )
-    return cfg, (lambda generator, device="cuda": sage_init(
-        cfg, generator, device=resolve_device(device))), (
+    return cfg, (lambda generator, device="cuda", train=False: sage_init(
+        cfg, generator, device=resolve_device(device), train=train)), (
         lambda model, gb: sage_loss(model, gb))
 
 

@@ -1,12 +1,16 @@
 """RecSys-family arch wrapper (``repro.configs.recsys``): DLRM's shapes,
-inputs, serving steps and roofline FLOPs.
+inputs, train and serving steps and roofline FLOPs.
 
-  train_batch     batch=65,536  (training: not ported yet, ROADMAP.md)
+  train_batch     batch=65,536  (training: loss + grad + AdamW)
   serve_p99       batch=512     (online inference forward)
   serve_bulk      batch=262,144 (offline scoring forward)
   retrieval_cand  batch=1 × 1,000,000 candidates (batched-dot retrieval)
 
-Partition specs and the optimizer wait for the sharding and training items.
+The train step is the reference's: `dlrm_loss`, its gradients and
+`adamw_update` with the arch's `AdamWConfig` (lr 1e-3), on a model built
+with ``train=True`` (f32 tables and MLPs; the tables get a dense update
+every step, as in the reference).  The serving steps run under
+``torch.inference_mode()``.  Partition specs wait for the sharding item.
 """
 from __future__ import annotations
 
@@ -18,7 +22,10 @@ import torch
 
 from ..data.synthetic import dlrm_batches
 from ..device import resolve_device
-from ..models.dlrm import DLRM, DLRMConfig, dlrm_apply, dlrm_init, retrieval_score
+from ..models.dlrm import (DLRM, DLRMConfig, dlrm_apply, dlrm_init, dlrm_loss,
+                           retrieval_score)
+from ..train.optimizer import AdamWConfig
+from ..train.step import make_train_step
 from .base import ShapeCell, TensorSpec
 
 RECSYS_SHAPES = {
@@ -39,11 +46,13 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1 / (1 + torch.exp(-x))
 
 
+@torch.inference_mode()
 def serve_step(model: DLRM, dense, sparse_idx) -> torch.Tensor:
     """Click probabilities: sigmoid of the logits."""
     return sigmoid(dlrm_apply(model, dense, sparse_idx))
 
 
+@torch.inference_mode()
 def retr_step(model: DLRM, dense, sparse_idx, candidates):
     return retrieval_score(model, dense, sparse_idx, candidates, top_k=100)
 
@@ -53,6 +62,9 @@ class RecsysArch:
     arch_name: str
     cfg: DLRMConfig
     reduced_cfg: DLRMConfig
+    opt: AdamWConfig = dataclasses.field(
+        default_factory=lambda: AdamWConfig(lr=1e-3))
+    family: str = "recsys"
 
     @property
     def name(self) -> str:
@@ -65,10 +77,11 @@ class RecsysArch:
         return self.reduced_cfg if reduced else self.cfg
 
     def init(self, generator: torch.Generator, *, reduced: bool = False,
-             device="cuda") -> DLRM:
-        """The model on ``device`` (raises for CUDA without a card)."""
+             device="cuda", train: bool = False) -> DLRM:
+        """The model on ``device`` (raises for CUDA without a card); f32
+        trainable tables and MLPs with ``train``."""
         return dlrm_init(self.config(reduced), generator,
-                         device=resolve_device(device))
+                         device=resolve_device(device), train=train)
 
     # ---- inputs ------------------------------------------------------------
     def batch(self, shape: str, reduced: bool = False) -> int:
@@ -119,13 +132,15 @@ class RecsysArch:
 
     # ---- steps ---------------------------------------------------------------
     def step_fn(self, shape: str) -> Callable:
+        """serve / retrieval: the serving steps; train_batch:
+        ``step(model, opt_state, dense, sparse_idx, labels) → (loss, model,
+        opt_state)``."""
         kind = RECSYS_SHAPES[shape].kind
         if kind == "serve":
             return serve_step
         if kind == "retrieval":
             return retr_step
-        raise NotImplementedError(
-            f"{shape}: DLRM's training step is not ported yet (ROADMAP.md)")
+        return make_train_step(dlrm_loss, self.opt)
 
     # ---- roofline --------------------------------------------------------------
     def model_flops(self, shape: str) -> float:

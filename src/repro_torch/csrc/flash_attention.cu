@@ -49,6 +49,11 @@
 //   of the first port.  256 threads as a 16 × 16 grid over a 64 × 64 score
 //   tile, scalar FMAs, masks as -1e30, P through shared memory; TF32 would
 //   not hold 1e-5.
+//
+// Both kernels also write each query row's log-sum-exp of its scaled (and
+// softcapped) scores, f32 (BH, S), when the caller passes an `lse` buffer:
+// the training path's backward kernels (flash_attention_bwd.cu) rebuild P
+// from it.  Serving passes none and stores nothing more.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -284,7 +289,8 @@ __global__ void __launch_bounds__(kTThreads, 2)
     flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           __nv_bfloat16* __restrict__ o, int BH, int S, int G,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int BH, int S, int G,
                            int causal, int window, int has_softcap,
                            float softcap, float scale) {
   using L = Swz<HD>;
@@ -459,6 +465,11 @@ __global__ void __launch_bounds__(kTThreads, 2)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int row = row0 + 8 * h;
     if (row >= S) continue;
+    // log Σ exp(x) = (m·c + log2 l) / log2 e, x the scaled (softcapped) score
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * S + row] =
+          m[h] == -INFINITY ? -INFINITY
+                            : (m[h] * c_exp + log2f(l[h])) * (1.f / kLog2e);
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
     __nv_bfloat16* out = o + ((size_t)bh * S + row) * HD + col2;
 #pragma unroll
@@ -506,8 +517,9 @@ __global__ void __launch_bounds__(kThreads)
     flash_attn_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
-                          int BH, int S, int G, int causal, int window,
-                          int has_softcap, float softcap, float scale) {
+                          float* __restrict__ lse, int BH, int S, int G,
+                          int causal, int window, int has_softcap,
+                          float softcap, float scale) {
   extern __shared__ float4 smem4[];
   constexpr int LDQ = HD + 4;
   constexpr int NJ = HD / 16;
@@ -631,6 +643,7 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * S + row] = m[i] + logf(l[i]);
     float* out = o + ((size_t)bh * S + row) * HD;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) out[tx + 16 * j] = acc[i][j] / denom;
@@ -639,9 +652,10 @@ __global__ void __launch_bounds__(kThreads)
 
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-               int G, int S, int causal, int window, int has_softcap,
-               float softcap, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int BH, int G, int S, int causal, int window,
+               int has_softcap, float softcap, float scale,
+               cudaStream_t stream) {
   const size_t smem = f32_smem_bytes<HD>();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -653,8 +667,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attn_f32_kernel<HD><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), BH, S, G, causal,
-      window, has_softcap, softcap, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, BH, S, G,
+      causal, window, has_softcap, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -702,9 +716,10 @@ int tensor_map(CUtensorMap* map, const void* ptr, int rows, int S,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
-                int G, int S, int causal, int window, int has_softcap,
-                float softcap, float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int BH, int G, int S, int causal, int window,
+                int has_softcap, float softcap, float scale,
+                cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err_map = tensor_map<HD>(&tq, q, BH, S, kTQ);
   if (err_map == 0) err_map = tensor_map<HD>(&tk, k, BH / G, S, kTK);
@@ -720,22 +735,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
   const long long blocks = (long long)BH * ((S + kTQ - 1) / kTQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attn_bf16_kernel<HD><<<(unsigned)blocks, kTThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), BH, S, G, causal, window,
-      has_softcap, softcap, scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, BH, S, G, causal,
+      window, has_softcap, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-#define REPRO_LAUNCH_HD(fn)                                                   \
-  switch (hd) {                                                               \
-    case 16: return fn<16>(q, k, v, o, BH, G, S, causal, window, has_softcap, \
-                           softcap, scale, st);                               \
-    case 32: return fn<32>(q, k, v, o, BH, G, S, causal, window, has_softcap, \
-                           softcap, scale, st);                               \
-    case 64: return fn<64>(q, k, v, o, BH, G, S, causal, window, has_softcap, \
-                           softcap, scale, st);                               \
-    case 128: return fn<128>(q, k, v, o, BH, G, S, causal, window,            \
-                             has_softcap, softcap, scale, st);                \
-    default: return (int)cudaErrorInvalidValue;                               \
+#define REPRO_LAUNCH_HD(fn)                                                  \
+  switch (hd) {                                                              \
+    case 16: return fn<16>(q, k, v, o, lse_f, BH, G, S, causal, window,      \
+                           has_softcap, softcap, scale, st);                 \
+    case 32: return fn<32>(q, k, v, o, lse_f, BH, G, S, causal, window,      \
+                           has_softcap, softcap, scale, st);                 \
+    case 64: return fn<64>(q, k, v, o, lse_f, BH, G, S, causal, window,      \
+                           has_softcap, softcap, scale, st);                 \
+    case 128: return fn<128>(q, k, v, o, lse_f, BH, G, S, causal, window,    \
+                             has_softcap, softcap, scale, st);               \
+    default: return (int)cudaErrorInvalidValue;                              \
   }
 
 }  // namespace
@@ -744,16 +759,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
 // k, v (BKV, S, hd); all contiguous, 16-byte aligned, of one dtype
 // (0 = float32: the CUDA-core kernel; 1 = bfloat16: the tensor-core
 // kernel); hd in {16, 32, 64, 128}; window <= 0 means no window; softcap is
-// read only when has_softcap is set.
+// read only when has_softcap is set.  lse: null, or (BH, S) f32 that takes
+// each row's log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int BH, int BKV,
-                                      int S, int hd, int dtype, int causal,
-                                      int window, int has_softcap,
-                                      float softcap, float scale,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int BH, int BKV, int S, int hd,
+                                      int dtype, int causal, int window,
+                                      int has_softcap, float softcap,
+                                      float scale, void* stream) {
   if (BH <= 0 || BKV <= 0 || BH % BKV != 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   const int G = BH / BKV;
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) { REPRO_LAUNCH_HD(launch_f32) }
   if (dtype == 1) { REPRO_LAUNCH_HD(launch_bf16) }

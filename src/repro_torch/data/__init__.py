@@ -1,5 +1,7 @@
 """Data sources for the port: the synthetic stand-ins for the paper's graphs,
-DLRM batches, and the GNN neighbour sampler."""
-from .synthetic import PAPER_DATASETS, dlrm_batches, paper_dataset, rmat_graph
+DLRM batches, the LM token stream, and the GNN neighbour sampler."""
+from .synthetic import (PAPER_DATASETS, dlrm_batches, paper_dataset, rmat_graph,
+                        token_stream)
 
-__all__ = ["PAPER_DATASETS", "dlrm_batches", "paper_dataset", "rmat_graph"]
+__all__ = ["PAPER_DATASETS", "dlrm_batches", "paper_dataset", "rmat_graph",
+           "token_stream"]

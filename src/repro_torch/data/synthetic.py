@@ -17,7 +17,7 @@ import numpy as np
 from ..core.graph import DataGraph, build_graph, sorted_unique
 
 __all__ = ["rmat_graph", "rmat_undirected_graph", "paper_dataset",
-           "PAPER_DATASETS", "dlrm_batches"]
+           "PAPER_DATASETS", "dlrm_batches", "token_stream"]
 
 _RMAT_CHUNK = 1 << 20   # edges a thread draws at a time
 
@@ -136,6 +136,23 @@ def paper_dataset(name: str, *, scale: float = 1.0, seed: int = 0) -> DataGraph:
     m = max(32, int(cfg["m"] * scale))
     return rmat_graph(n, m, n_labels=cfg["n_labels"], seed=seed,
                       undirected=True)
+
+
+def token_stream(vocab: int, batch: int, seq: int, *, seed: int = 0,
+                 start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """The reference's synthetic text, draw for draw: (tokens, targets)
+    int32 (batch, seq) with Zipf marginals (p ∝ 1/rank), one numpy
+    generator seeded with ``(seed, step)`` a step, so a run resumed at step
+    k reads the stream an uninterrupted run reads there."""
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs).astype(np.int32)
+        yield toks[:, :-1], toks[:, 1:]
+        step += 1
 
 
 def dlrm_batches(cfg, batch: int, *, seed: int = 0, start_step: int = 0

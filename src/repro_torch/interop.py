@@ -15,7 +15,11 @@ compares the port's outputs through them, one function per state type:
     model from the reference's parameter pytree, and
     `transformer_config_from` its config from the reference's;
   * DLRM and GraphSAGE weights — `dlrm_params_from_numpy`,
-    `sage_params_from_numpy`;
+    `sage_params_from_numpy` (each as frozen serving weights, or with
+    ``train=True`` as the reference's f32 masters), and back into the
+    reference's pytree: `params_to_numpy`;
+  * optimizer state — `adamw_state_from_numpy` / `adamw_state_to_numpy`:
+    the reference's ``AdamWState`` ↔ the port's, moments by parameter;
   * graph batches — `graph_batch_from_numpy` (from any object with the
     reference's `GraphBatch` fields).
 """
@@ -28,16 +32,20 @@ import torch
 
 from .core.graph import DataGraph
 from .core.plan import _TENSOR_FIELDS, PatternPlan, plan_from_numpy
+from .models.common import for_serving
 from .models.dlrm import DLRM, DLRMConfig
 from .models.gnn.common import MLP, GraphBatch
 from .models.gnn.graphsage import SAGE, SAGEConfig
 from .models.transformer import Transformer, TransformerConfig
+from .train.optimizer import AdamWState
 
 __all__ = ["data_graph_from_arrays", "plan_from_numpy", "plan_from_fields",
            "bitmap_from_uint32", "bitmap_to_uint32", "table_from_numpy",
            "table_to_numpy", "transformer_config_from",
            "transformer_params_from_numpy", "dlrm_params_from_numpy",
-           "sage_params_from_numpy", "graph_batch_from_numpy"]
+           "sage_params_from_numpy", "graph_batch_from_numpy",
+           "param_entries", "params_to_numpy", "adamw_state_from_numpy",
+           "adamw_state_to_numpy"]
 
 
 def data_graph_from_arrays(g) -> DataGraph:
@@ -92,73 +100,187 @@ def transformer_config_from(cfg) -> TransformerConfig:
                              dtype=getattr(torch, np.dtype(cfg.dtype).name))
 
 
-def _put(param, a, transpose=False) -> None:
-    a = np.array(a, np.float32)
+def _put(param, a) -> None:
+    """Copy ``a`` into ``param`` (an f32 master: unchanged)."""
     with torch.no_grad():
-        param.copy_(torch.from_numpy(a.T.copy() if transpose else a))
+        param.copy_(torch.from_numpy(np.array(a, np.float32)))
+
+
+# A parameter's entry: (port name, path in the reference's pytree, index
+# on the stacked layer axis or None, transposed).  The reference stores a
+# dense kernel as (in, out), the port as (out, in); DLRM's 26 tables are
+# one (T, R, D) stack in the port (the path names the tables' dict).
+
+def _transformer_entries(cfg: TransformerConfig):
+    out = [("embed", ("embed", "table"), None, False),
+           ("ln_final.scale", ("ln_final", "scale"), None, False)]
+    for i in range(cfg.n_layers):
+        if cfg.local_global:
+            base, step = ("layers", "local" if i % 2 == 0 else "global"), i // 2
+        else:
+            base, step = ("layers",), i
+        pre = f"layers.{i}."
+        out += [(pre + "ln_attn.scale", base + ("ln_attn", "scale"), step,
+                 False),
+                (pre + "ln_ffn.scale", base + ("ln_ffn", "scale"), step,
+                 False)]
+        out += [(pre + f"attn.{n}.weight", base + ("attn", n, "kernel"), step,
+                 True) for n in ("wq", "wk", "wv", "wo")]
+        if cfg.qk_norm:
+            out += [(pre + f"attn.{n}.scale", base + ("attn", n, "scale"),
+                     step, False) for n in ("q_norm", "k_norm")]
+        out += [(pre + f"ffn.{n}.weight", base + ("ffn", n, "kernel"), step,
+                 True) for n in ("wi", "wg", "wo")]
+    return out
+
+
+def _mlp_entries(prefix: str, n_layers: int):
+    return [(f"{prefix}.layers.{i}.weight", (prefix, f"l{i}", "kernel"), None,
+             True) for i in range(n_layers)]
+
+
+def _dlrm_entries(cfg: DLRMConfig):
+    return (_mlp_entries("bot", len(cfg.bot_mlp))
+            + [("tables", ("tables",), None, False)]
+            + _mlp_entries("top", len(cfg.top_mlp)))
+
+
+def _sage_entries(cfg: SAGEConfig):
+    out = []
+    for l in range(cfg.n_layers):
+        out += [(f"self_.{l}.weight", (f"self{l}", "kernel"), None, True),
+                (f"neigh.{l}.weight", (f"neigh{l}", "kernel"), None, True)]
+    return out + [("head.weight", ("head", "kernel"), None, True)]
+
+
+def param_entries(model):
+    """The reference-pytree entries of a port model's parameters."""
+    if isinstance(model, Transformer):
+        return _transformer_entries(model.cfg)
+    if isinstance(model, DLRM):
+        return _dlrm_entries(model.cfg)
+    if isinstance(model, SAGE):
+        return _sage_entries(model.cfg)
+    raise TypeError(f"no reference layout for {type(model).__name__}")
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _read(tree, entry) -> np.ndarray:
+    """The entry's array from the reference's pytree, in the port's layout."""
+    name, path, step, transpose = entry
+    node = _get(tree, path)
+    if name == "tables":
+        return np.stack([np.asarray(node[f"t{t}"]["table"])
+                         for t in range(len(node))])
+    a = np.asarray(node)
+    if step is not None:
+        a = a[step]
+    return a.T if transpose else a
+
+
+def _write(tree, entry, a: np.ndarray) -> None:
+    """Write a port-layout array into a (copied) reference pytree."""
+    name, path, step, transpose = entry
+    if name == "tables":
+        node = _get(tree, path)
+        for t in range(a.shape[0]):
+            node[f"t{t}"]["table"] = a[t]
+        return
+    a = a.T if transpose else a
+    if step is None:
+        _get(tree, path[:-1])[path[-1]] = a
+    else:
+        _get(tree, path)[step] = a
+
+
+def _load(model, tree, train: bool):
+    """``model`` (as built: f32 masters) holding ``tree``; `for_serving`
+    unless ``train``."""
+    for entry in param_entries(model):
+        _put(model.get_parameter(entry[0]), _read(tree, entry))
+    return model if train else for_serving(model)
 
 
 def transformer_params_from_numpy(tree, cfg: TransformerConfig,
-                                  device="cpu") -> Transformer:
+                                  device="cpu", train: bool = False
+                                  ) -> Transformer:
     """The port's model holding the reference's parameters.
 
     ``tree`` is the reference's ``transformer_init`` pytree with numpy
     leaves.  The leading scan axis is unstacked into one block per layer,
     ``(local, global)`` pairs into consecutive layers; each dense kernel
-    (in, out) becomes the port's ``weight`` (out, in), rounded to bf16 as
-    every use rounds it; norm scales stay f32, the embedding takes
-    ``cfg.dtype``.
+    (in, out) becomes the port's ``weight`` (out, in).  A serving model
+    rounds the dense weights to bf16, as every use rounds them, and the
+    embedding to ``cfg.dtype``; with ``train`` they stay the reference's
+    f32 masters.  Norm scales are f32 either way.
     """
-    model = Transformer(cfg, device=device)
-    _put(model.embed, tree["embed"]["table"])
-    _put(model.ln_final.scale, tree["ln_final"]["scale"])
-    for i, blk in enumerate(model.layers):
-        if cfg.local_global:
-            p = tree["layers"]["local" if i % 2 == 0 else "global"]
-            step = i // 2
-        else:
-            p, step = tree["layers"], i
-        _put(blk.ln_attn.scale, p["ln_attn"]["scale"][step])
-        _put(blk.ln_ffn.scale, p["ln_ffn"]["scale"][step])
-        for name in ("wq", "wk", "wv", "wo"):
-            _put(getattr(blk.attn, name).weight,
-                 p["attn"][name]["kernel"][step], transpose=True)
-        if cfg.qk_norm:
-            _put(blk.attn.q_norm.scale, p["attn"]["q_norm"]["scale"][step])
-            _put(blk.attn.k_norm.scale, p["attn"]["k_norm"]["scale"][step])
-        for name in ("wi", "wg", "wo"):
-            _put(getattr(blk.ffn, name).weight,
-                 p["ffn"][name]["kernel"][step], transpose=True)
-    return model
+    return _load(Transformer(cfg, device=device), tree, train)
 
 
-def _put_mlp(mlp: MLP, tree) -> None:
-    for i, layer in enumerate(mlp.layers):
-        _put(layer.weight, tree[f"l{i}"]["kernel"], transpose=True)
-
-
-def dlrm_params_from_numpy(tree, cfg: DLRMConfig, device="cpu") -> DLRM:
+def dlrm_params_from_numpy(tree, cfg: DLRMConfig, device="cpu",
+                           train: bool = False) -> DLRM:
     """The port's DLRM holding the reference's ``dlrm_init`` pytree (numpy
-    leaves): MLP kernels transposed to (out, in) and rounded to bf16, the
-    26 f32 tables stacked into one bf16 (T, R, D) tensor, as every
-    reference lookup rounds them."""
-    model = DLRM(cfg, device=device)
-    _put_mlp(model.bot, tree["bot"])
-    _put_mlp(model.top, tree["top"])
-    for t in range(cfg.n_sparse):
-        _put(model.tables[t], tree["tables"][f"t{t}"]["table"])
-    return model
+    leaves): MLP kernels transposed to (out, in), the 26 f32 tables
+    stacked into one (T, R, D) tensor; rounded to bf16 for serving, as
+    every reference lookup rounds them, f32 masters with ``train``."""
+    return _load(DLRM(cfg, device=device), tree, train)
 
 
-def sage_params_from_numpy(tree, cfg: SAGEConfig, device="cpu") -> SAGE:
-    """The port's GraphSAGE holding the reference's ``sage_init`` pytree."""
-    model = SAGE(cfg, device=device)
-    for l in range(cfg.n_layers):
-        _put(model.self_[l].weight, tree[f"self{l}"]["kernel"], transpose=True)
-        _put(model.neigh[l].weight, tree[f"neigh{l}"]["kernel"],
-             transpose=True)
-    _put(model.head.weight, tree["head"]["kernel"], transpose=True)
-    return model
+def sage_params_from_numpy(tree, cfg: SAGEConfig, device="cpu",
+                           train: bool = False) -> SAGE:
+    """The port's GraphSAGE holding the reference's ``sage_init`` pytree
+    (bf16 serving weights, or f32 masters with ``train``)."""
+    return _load(SAGE(cfg, device=device), tree, train)
+
+
+def params_to_numpy(model, template):
+    """The port model's parameters as the reference's pytree: a copy of
+    ``template`` (a reference pytree of the same model, numpy leaves) with
+    every parameter written in (f32)."""
+    out = _copy_tree(template)
+    for entry in param_entries(model):
+        _write(out, entry, model.get_parameter(entry[0]).detach().float()
+               .cpu().numpy())
+    return out
+
+
+def _copy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    return np.array(tree, copy=True)
+
+
+def adamw_state_from_numpy(state, model, device="cpu") -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves: step, mu, nu) as the
+    port's, keyed like ``train.step.trainable_params(model)``: moments in
+    the parameters' dtype and layout, step int32."""
+    step, mu, nu = state
+
+    def moments(tree):
+        return {entry[0]: torch.from_numpy(np.ascontiguousarray(
+                    _read(tree, entry), np.float32)).to(device)
+                for entry in param_entries(model)}
+
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32, device=device),
+                      mu=moments(mu), nu=moments(nu))
+
+
+def adamw_state_to_numpy(state: AdamWState, model, template):
+    """The port's `AdamWState` as the reference's (step, mu, nu) with numpy
+    leaves, mu and nu shaped like ``template`` (the reference's params)."""
+    def moments(tree):
+        out = _copy_tree(template)
+        for entry in param_entries(model):
+            _write(out, entry, tree[entry[0]].detach().float().cpu().numpy())
+        return out
+
+    return (np.int32(int(state.step)), moments(state.mu), moments(state.nu))
 
 
 def graph_batch_from_numpy(gb, device="cpu") -> GraphBatch:

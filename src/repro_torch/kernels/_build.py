@@ -36,6 +36,10 @@ SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
     "embedding_bag": CSRC / "embedding_bag.cu",
     "gather_aggregate": CSRC / "gather_aggregate.cu",
+    "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
+    "embedding_bag_bwd": CSRC / "embedding_bag_bwd.cu",
+    "gather_aggregate_t": CSRC / "gather_aggregate_t.cu",
+    "adamw": CSRC / "adamw.cu",
 }
 # the name prefix of every CUDA kernel (`__global__` function) of a source
 KERNEL_PREFIX = {
@@ -44,6 +48,10 @@ KERNEL_PREFIX = {
     "flash_attention": "flash_attn_",
     "embedding_bag": "bag_",
     "gather_aggregate": "agg_",
+    "flash_attention_bwd": "flash_bwd_",
+    "embedding_bag_bwd": "embbwd_",
+    "gather_aggregate_t": "aggt_",
+    "adamw": "adamw_",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

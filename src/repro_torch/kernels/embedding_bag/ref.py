@@ -30,3 +30,22 @@ def embedding_bag_ref(tables: torch.Tensor, ids: torch.Tensor,
     if mean:
         out = out / mask.sum(dim=2, keepdim=True).clamp(min=1)
     return out.to(tables.dtype)
+
+
+def embedding_bag_grad_from_plan(d_out: torch.Tensor, plan, T: int, R: int
+                                 ) -> torch.Tensor:
+    """Plain version of the backward kernel's segment reduction: the
+    tables' gradient (T, R, D) in d_out's dtype from an `ops.BagGradPlan`,
+    each segment summed in f32 in its order and rounded once.  The CPU
+    tests hold the plan against autograd of `embedding_bag_ref` with it."""
+    B, _, D = d_out.shape
+    rows = d_out.reshape(B * T, D).float()[plan.entry.long() // plan.H]
+    contrib = rows * plan.coef[plan.entry.long()][:, None]
+    seg = torch.repeat_interleave(
+        torch.arange(plan.seg_row.numel(), device=d_out.device),
+        torch.diff(plan.seg_start.long()))
+    sums = torch.zeros((plan.seg_row.numel(), D), dtype=torch.float32,
+                       device=d_out.device).index_add_(0, seg, contrib)
+    out = torch.zeros((T * R, D), dtype=d_out.dtype, device=d_out.device)
+    out[plan.seg_row] = sums.to(d_out.dtype)
+    return out.reshape(T, R, D)

@@ -81,10 +81,12 @@ def _positions(batch: int, pos: int, dev) -> torch.Tensor:
     return torch.full((batch,), pos, dtype=torch.long, device=dev)
 
 
+@torch.inference_mode()
 def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
           replay_len: Optional[int] = None, warmup: int = 1) -> dict:
     """Prefill, replay and greedy decode of ``prompts`` (B, P); returns the
-    measurements and the generated ids (see the module docstring)."""
+    measurements and the generated ids (see the module docstring).  Runs
+    under ``torch.inference_mode()``: no autograd state is kept."""
     cfg = model.cfg
     dev = prompts.device
     B, P = prompts.shape

@@ -4,13 +4,14 @@ Covers the reference's variants: GQA / MQA, qk-norm (RMS over head_dim),
 attention-logit softcap, sliding-window masks with local/global
 alternation, RoPE positions, bf16 projections and an f32 softmax.
 
-Full-sequence path (`mha_train`, the serving prefill) and decode path
-(`mha_decode`, one step against a preallocated KV cache).  Which
-attention the full-sequence path runs follows the device, never a config
-field: CUDA tensors always go through the hand-written flash-attention
-kernel (``repro_torch.kernels.flash_attention``); CPU tensors keep the
+Full-sequence path (`mha_train`: training and the serving prefill) and
+decode path (`mha_decode`, one step against a preallocated KV cache).
+Which attention the full-sequence path runs follows the device, never a
+config field: CUDA tensors always go through the hand-written
+flash-attention kernels (``repro_torch.kernels.flash_attention``: the
+forward, and under autograd the backward kernels); CPU tensors keep the
 reference's ``impl`` meaning, ``"dense"`` or ``"chunked"``, both plain
-torch.  So `AttentionConfig` has no ``use_flash`` field.  Sharding
+torch, differentiated by autograd.  So `AttentionConfig` has no ``use_flash`` field.  Sharding
 (``_tp_attention``, ``constrain``) has no counterpart on one card and is
 left out (ROADMAP).
 """

@@ -4,9 +4,13 @@ Layers are ``nn.Module``s holding their weights; the ``*_apply`` functions
 keep the reference's arithmetic exactly:
 
   * a dense layer casts x and W to bf16 at the boundary and returns bf16;
-    its weight is stored as ``nn.Linear`` does, ``(out, in)``, already in
-    bf16 (every use casts to bf16 first, and f32 → bf16 rounds to nearest
-    even in both frameworks, so storing the rounded value changes nothing);
+    its weight is stored as ``nn.Linear`` does, ``(out, in)``, as the
+    reference's f32 master, which takes gradients and AdamW updates;
+  * every layer is built so; `for_serving` then makes a built model a
+    serving one: dense weights and embeddings rounded once to their
+    compute dtype, every parameter frozen (every use casts to bf16 first,
+    and f32 → bf16 rounds to nearest even in both frameworks, so storing
+    the rounded value changes nothing);
   * RMSNorm scales by ``1 + scale``, in f32, and returns the input's dtype;
   * RoPE rotates split halves (``[x1·cos − x2·sin, x2·cos + x1·sin]``), not
     interleaved pairs;
@@ -22,9 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "RMSNorm", "dense_apply", "rmsnorm_apply", "embed_apply",
-           "rotary_embedding", "apply_rope", "softcap", "count_params",
-           "normal_"]
+__all__ = ["Dense", "RMSNorm", "for_serving", "dense_apply", "rmsnorm_apply",
+           "embed_apply", "rotary_embedding", "apply_rope", "softcap",
+           "count_params", "normal_"]
 
 
 def normal_(t: torch.Tensor, scale: float, generator: torch.Generator
@@ -38,16 +42,31 @@ def normal_(t: torch.Tensor, scale: float, generator: torch.Generator
     return t
 
 
+def for_serving(model: nn.Module) -> nn.Module:
+    """Make a built model a serving one, in place, and return it: each
+    parameter that a module names in its ``serve_dtype`` (dense weights,
+    embeddings) is rounded to that dtype, and every parameter is frozen."""
+    with torch.no_grad():
+        for mod in model.modules():
+            for name, dtype in getattr(mod, "serve_dtype", {}).items():
+                param = getattr(mod, name)
+                param.data = param.data.to(dtype)
+    for param in model.parameters():
+        param.requires_grad_(False)
+    return model
+
+
 class Dense(nn.Module):
     """``x @ W`` with W of shape (in, out) in the reference, stored here as
-    ``weight`` (out, in) in bf16."""
+    ``weight`` (out, in) in f32 (bf16 once `for_serving`)."""
+
+    serve_dtype = {"weight": torch.bfloat16}
 
     def __init__(self, in_dim: int, out_dim: int, *, device=None):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, device=device,
-                                               dtype=torch.bfloat16),
-                                   requires_grad=False)
+                                               dtype=torch.float32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         normal_(self.weight, 1.0 / math.sqrt(self.in_dim), generator)
@@ -60,8 +79,7 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, *, device=None):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim, device=device,
-                                             dtype=torch.float32),
-                                  requires_grad=False)
+                                             dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm_apply(self.scale, x)

@@ -1,16 +1,22 @@
 """DLRM-RM2 (Naumov et al., arXiv:1906.00091), the dot-interaction recsys
-model (``repro.models.dlrm`` on PyTorch), forward only.
+model (``repro.models.dlrm`` on PyTorch).
 
 13 dense features → bottom MLP; 26 sparse features → EmbeddingBags;
 pairwise dot interaction over the 27 embedding-dim vectors; top MLP → CTR
 logit.  `retrieval_score` serves the 1 × 10⁶-candidate retrieval cell as
 one batched product.
 
-The 26 tables live in one (T, R, D) bf16 stack, rounded once from the f32
-draws (every reference lookup casts its f32 table to bf16 first, so the
-values are the same), and all 26 lookups of a forward are one launch of
-the embedding-bag kernel.  The interaction, the MLPs and the top-k are
-plain products (cuBLAS on the card), as the reference leaves them to XLA.
+The 26 tables live in one (T, R, D) stack, and all 26 lookups of a
+forward are one launch of the embedding-bag kernel.  A serving model
+(`dlrm_init` without ``train``: `for_serving`) stores the stack in bf16,
+rounded once from the f32 draws (every reference lookup casts its f32 table to bf16 first, so the
+values are the same); a training model keeps the reference's f32 tables,
+casts them to bf16 at each forward as the reference does (3.3 GB written
+a step at full width), and the bag's backward kernel returns their bf16
+gradient, which the cast's backward widens to f32.  The interaction, the
+MLPs and the top-k are plain products (cuBLAS on the card), as the
+reference leaves them to XLA.  `dlrm_apply` and `dlrm_loss` run under
+autograd; the serving steps enter ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .common import for_serving
 from .embedding import embedding_bag_apply
 from .gnn.common import MLP, mlp_apply
 
@@ -49,6 +56,8 @@ class DLRMConfig:
 
 
 class DLRM(nn.Module):
+    serve_dtype = {"tables": torch.bfloat16}
+
     def __init__(self, cfg: DLRMConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
@@ -56,8 +65,7 @@ class DLRM(nn.Module):
         self.top = MLP((cfg.top_in,) + cfg.top_mlp, device=device)
         self.tables = nn.Parameter(
             torch.empty(cfg.n_sparse, cfg.table_rows, cfg.embed_dim,
-                        dtype=torch.bfloat16, device=device),
-            requires_grad=False)
+                        dtype=torch.float32, device=device))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator,
@@ -71,10 +79,12 @@ class DLRM(nn.Module):
 
 
 def dlrm_init(cfg: DLRMConfig, generator: torch.Generator, *,
-              device=None) -> DLRM:
+              device=None, train: bool = False) -> DLRM:
+    """Random weights from ``generator``: f32 trainable masters with
+    ``train``, else `for_serving`."""
     model = DLRM(cfg, device=device)
     model.reset_parameters(generator)
-    return model
+    return model if train else for_serving(model)
 
 
 def _interact(vecs: torch.Tensor) -> torch.Tensor:
@@ -87,11 +97,11 @@ def _interact(vecs: torch.Tensor) -> torch.Tensor:
 
 
 def _lookups(model: DLRM, sparse_idx: torch.Tensor) -> torch.Tensor:
-    """(B, 26, n_hot) ids → (B, 26, D) bf16 bag sums, one kernel launch."""
+    """(B, 26, n_hot) ids → (B, 26, D) bf16 bag sums, one kernel launch
+    (the f32 tables of a training model are cast to bf16 first)."""
     return embedding_bag_apply(model.tables, sparse_idx)
 
 
-@torch.no_grad()
 def dlrm_apply(model: DLRM, dense: torch.Tensor,
                sparse_idx: torch.Tensor) -> torch.Tensor:
     """dense: (B, 13) float; sparse_idx: (B, 26, n_hot) int32 → (B,) bf16
@@ -106,7 +116,7 @@ def dlrm_apply(model: DLRM, dense: torch.Tensor,
 
 def dlrm_loss(model: DLRM, dense: torch.Tensor, sparse_idx: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy with logits (forward only)."""
+    """Mean binary cross-entropy with logits."""
     logits = dlrm_apply(model, dense, sparse_idx).float()
     labels = labels.float()
     return torch.mean(torch.clamp(logits, min=0) - logits * labels

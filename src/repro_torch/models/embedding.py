@@ -3,10 +3,12 @@
 The reference gathers with ``jnp.take`` and names its Pallas kernel as the
 single-shard fast path; here every lookup goes through the embedding-bag
 kernel's wrapper (`kernels.embedding_bag.ops`): the kernel for a table on
-the card, its plain version for one on the CPU.  A table may be stored in
-the compute dtype already (DLRM keeps one bf16 stack made once from the
-f32 draws), which gives the reference's per-call ``astype`` result without
-the per-call cast.
+the card, its plain version for one on the CPU, and under autograd the
+kernel's backward.  A table may be stored in the compute dtype already (a
+serving DLRM keeps one bf16 stack made once from the f32 draws), which
+gives the reference's per-call ``astype`` result without the per-call
+cast; a training model's f32 tables are cast at each call, as the
+reference casts them.
 """
 from __future__ import annotations
 

@@ -91,7 +91,8 @@ class MLP(nn.Module):
     def __init__(self, dims: Sequence[int], *, device=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            Dense(a, b, device=device) for a, b in zip(dims[:-1], dims[1:]))
+            Dense(a, b, device=device)
+            for a, b in zip(dims[:-1], dims[1:]))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in self.layers:

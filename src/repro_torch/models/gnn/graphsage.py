@@ -11,7 +11,10 @@ sources of the edges into v in edge order) and each layer is one
 version on the CPU, so both devices run the same algorithm.  The sum runs
 in f32 and rounds once to bf16, where the reference's bf16 scatter rounds
 after every add; the two agree within bf16 tolerance (f32 features agree
-to f32 rounding, ``tests/test_torch_gnn.py``).
+to f32 rounding, ``tests/test_torch_gnn.py``).  Under autograd the
+aggregate's backward is the transpose kernel; only layer 1's input takes a
+gradient there (the features ``x`` take none).  `sage_init` builds f32
+masters for training (``train=True``) or frozen bf16 serving weights.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 from torch import nn
 
 from ...kernels.gather_aggregate.ops import gather_aggregate, in_neighbor_table
-from ..common import Dense
+from ..common import Dense, for_serving
 from .common import GraphBatch, node_class_loss
 
 __all__ = ["SAGEConfig", "SAGE", "sage_init", "sage_apply", "sage_loss"]
@@ -64,13 +67,14 @@ class SAGE(nn.Module):
 
 
 def sage_init(cfg: SAGEConfig, generator: torch.Generator, *,
-              device=None) -> SAGE:
+              device=None, train: bool = False) -> SAGE:
+    """Random weights from ``generator``: f32 trainable masters with
+    ``train``, else `for_serving`."""
     model = SAGE(cfg, device=device)
     model.reset_parameters(generator)
-    return model
+    return model if train else for_serving(model)
 
 
-@torch.no_grad()
 def sage_apply(model: SAGE, gb: GraphBatch) -> torch.Tensor:
     cfg = model.cfg
     h = gb.x.to(torch.bfloat16)

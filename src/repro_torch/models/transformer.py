@@ -9,7 +9,15 @@ until ``models/moe.py`` is ported (ROADMAP).
 `TransformerConfig` has the reference's fields minus ``use_flash``: which
 attention runs follows the device (see ``attention.py``).  ``remat`` and
 ``scan_layers`` are kept so configurations read the same, and ignored:
-the port has no backward pass to rematerialise and always loops.
+the port always loops, and autograd keeps every layer's activations (the
+training cut of qwen3-1.7b, batch 4 × 1 024 tokens, fits one 80 GB card
+without recomputation).
+
+A training model (`transformer_init` with ``train``) keeps the
+reference's f32 masters and casts them to ``cfg.dtype`` at each use, as
+the reference does; a serving model (`for_serving`) stores its dense
+weights and embedding rounded once, frozen.  `transformer_apply` and `lm_loss` run under autograd; serving
+enters ``torch.inference_mode()`` at its own call sites.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ from .attention import (
     mha_decode,
     mha_train,
 )
-from .common import Dense, RMSNorm, embed_apply, normal_, softcap
+from .common import Dense, RMSNorm, embed_apply, for_serving, normal_, softcap
 
 __all__ = ["TransformerConfig", "Transformer", "transformer_init",
            "transformer_apply", "lm_loss", "init_decode_cache",
@@ -58,7 +66,7 @@ class TransformerConfig:
     final_softcap: Optional[float] = None
     rope_base: float = 10000.0
     # --- execution ---
-    remat: bool = True                 # kept, ignored (no backward pass)
+    remat: bool = True                 # kept, ignored (no recomputation)
     attn_impl: str = "dense"           # CPU only: "dense" | "chunked"
     q_chunk: int = 512
     kv_chunk: int = 1024
@@ -153,8 +161,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """``embed`` (vocab, d_model) in ``cfg.dtype``, ``layers``, ``ln_final``;
-    the output projection is the tied embedding."""
+    """``embed`` (vocab, d_model) in f32 (``cfg.dtype`` once
+    `for_serving`), ``layers``, ``ln_final``; the output projection is the
+    tied embedding."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
@@ -163,9 +172,10 @@ class Transformer(nn.Module):
                 f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not "
                 "ported yet (models/moe.py; see ROADMAP.md)")
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model,
-                                              dtype=cfg.dtype, device=device),
-                                  requires_grad=False)
+        self.serve_dtype = {"embed": cfg.dtype}
+        self.embed = nn.Parameter(
+            torch.empty(cfg.vocab, cfg.d_model, device=device,
+                        dtype=torch.float32))
         self.layers = nn.ModuleList(
             Block(cfg, local=cfg.layer_is_local(i), device=device)
             for i in range(cfg.n_layers))
@@ -182,13 +192,14 @@ class Transformer(nn.Module):
 
 
 def transformer_init(cfg: TransformerConfig, generator: torch.Generator, *,
-                     device=None) -> Transformer:
-    """Random weights from ``generator`` (on ``device``'s type).  The draws
-    differ from ``jax.random``'s; tests carry the reference's weights over
-    with ``repro_torch.interop.transformer_params_from_numpy``."""
+                     device=None, train: bool = False) -> Transformer:
+    """Random weights from ``generator`` (on ``device``'s type): f32
+    trainable masters with ``train``, else `for_serving`.  The draws differ
+    from ``jax.random``'s; tests carry the reference's weights over with
+    ``repro_torch.interop.transformer_params_from_numpy``."""
     model = Transformer(cfg, device=device)
     model.reset_parameters(generator)
-    return model
+    return model if train else for_serving(model)
 
 
 def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -204,7 +215,6 @@ def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return softcap(logits, cfg.final_softcap)
 
 
-@torch.no_grad()
 def transformer_apply(model: Transformer, tokens: torch.Tensor,
                       cache: Optional[List[Cache]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,7 +235,8 @@ def transformer_apply(model: Transformer, tokens: torch.Tensor,
 
 def lm_loss(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor,
             *, aux_weight: float = 0.01) -> torch.Tensor:
-    """Mean next-token cross-entropy of the forward pass (no gradient)."""
+    """Mean next-token cross-entropy: f32 logits, ``logsumexp − gold``, plus
+    ``aux_weight · aux`` (the reference's ``lm_loss``)."""
     logits, aux = transformer_apply(model, tokens)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)

@@ -1,4 +1,4 @@
-"""Deterministic fault injection for the mining runtime.
+"""Deterministic fault injection for the mining runtime and the trainer.
 
 The fault-tolerance layer (checksummed checkpoints, COMMIT-chain fallback,
 save retries) is only as trustworthy as the failures it was tested against.
@@ -27,6 +27,8 @@ plan is installed):
   * ``level.distributed`` — entry of the distributed level executor
                             (mesh-failure class; nothing in this package
                             fires it until the distributed plane exists)
+  * ``train.step``        — start of every guarded training step of
+                            ``launch/train.py`` (straggler class)
 
 Fault kinds:
 
@@ -44,6 +46,8 @@ Fault kinds:
                            under ``path`` (no raise — silent bit-rot)
   * ``corrupt_manifest`` — overwrite the file at ``path`` with truncated
                            garbage (no raise)
+  * ``stall``            — sleep ``stall_s`` seconds (a straggling step:
+                           the trainer's `StepGuard` cuts it short)
 
 Plans come from code (`install`) or from the ``REPRO_TORCH_FAULT_PLAN``
 env var (JSON, see `FaultPlan.from_env`) so subprocess runs can be
@@ -56,6 +60,7 @@ import errno as errno_lib
 import json
 import os
 import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -63,7 +68,8 @@ import numpy as np
 
 __all__ = [
     "FAULT_PLAN_ENV", "FaultSpec", "FaultPlan", "InjectedCrash",
-    "InjectedFault", "install", "clear", "active", "fire", "POINTS", "KINDS",
+    "InjectedFault", "install", "clear", "active", "fire", "POINTS",
+    "TRAIN_POINTS", "KINDS",
 ]
 
 FAULT_PLAN_ENV = "REPRO_TORCH_FAULT_PLAN"
@@ -72,8 +78,10 @@ POINTS = (
     "save.io", "save.array_write", "save.manifest", "save.pre_commit",
     "save.committed", "session.snapshot", "level.distributed",
 )
+# points fired outside the mining runtime: the trainer's step loop
+TRAIN_POINTS = ("train.step",)
 KINDS = ("crash", "io_error", "error", "torn_write", "bitflip",
-         "corrupt_manifest")
+         "corrupt_manifest", "stall")
 
 
 class InjectedCrash(BaseException):
@@ -95,11 +103,12 @@ class FaultSpec:
     at: int = 1          # 1-based arrival index of the first firing
     times: int = 1       # consecutive arrivals that fire
     errno_name: str = "EIO"   # io_error kind only: EIO / ENOSPC / ...
+    stall_s: float = 0.0      # stall kind only: seconds to sleep
 
     def __post_init__(self):
-        if self.point not in POINTS:
+        if self.point not in POINTS + TRAIN_POINTS:
             raise ValueError(f"unknown injection point {self.point!r}; "
-                             f"must be one of {POINTS}")
+                             f"must be one of {POINTS + TRAIN_POINTS}")
         if self.kind not in KINDS:
             raise ValueError(f"unknown fault kind {self.kind!r}; "
                              f"must be one of {KINDS}")
@@ -110,13 +119,15 @@ class FaultSpec:
 
     def to_dict(self) -> Dict[str, Any]:
         return {"point": self.point, "kind": self.kind, "at": self.at,
-                "times": self.times, "errno": self.errno_name}
+                "times": self.times, "errno": self.errno_name,
+                "stall_s": self.stall_s}
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "FaultSpec":
         return cls(point=str(d["point"]), kind=str(d["kind"]),
                    at=int(d.get("at", 1)), times=int(d.get("times", 1)),
-                   errno_name=str(d.get("errno", "EIO")))
+                   errno_name=str(d.get("errno", "EIO")),
+                   stall_s=float(d.get("stall_s", 0.0)))
 
 
 class FaultPlan:
@@ -195,6 +206,9 @@ class FaultPlan:
             return
         if spec.kind == "corrupt_manifest":
             Path(path).write_text('{"format_version": 2, "truncat')
+            return
+        if spec.kind == "stall":
+            time.sleep(spec.stall_s)
             return
         raise AssertionError(f"unhandled fault kind {spec.kind}")
 

@@ -5,8 +5,13 @@ torch version on the same device tensors, and compares every output.  The
 mining kernels compute integers and bits, so their tolerance is zero; the
 flash-attention, embedding-bag and gather-aggregate kernels are held to
 `FLASH_TOL`, `BAG_TOL` and `AGG_TOL` (the reference's own kernel tests'
-tolerances; an embedding bag of one id per bag is held to zero).  Each ``*_case`` function returns the largest absolute
-difference it saw and raises ``AssertionError`` on any mismatch.
+tolerances; an embedding bag of one id per bag is held to zero).  The
+training path's backward kernels (flash attention's backward, the bag's
+and the aggregate's transposes) are held to autograd of the plain
+forward on f32 copies of the inputs, within `FLASH_BWD_TOL`, `BAG_BWD_TOL`
+and `AGG_T_TOL`, and must give the same bytes on a second launch.  Each
+``*_case`` function returns the largest absolute difference it saw and
+raises ``AssertionError`` on any mismatch.
 """
 from __future__ import annotations
 
@@ -37,7 +42,10 @@ __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
            "max_abs_diff", "frontier_work", "mis_rows_scanned",
            "FLASH_CASES", "FLASH_TOL", "flash_inputs", "flash_case",
            "BAG_CASES", "BAG_TOL", "bag_case", "AGG_CASES", "AGG_TOL",
-           "agg_case"]
+           "agg_case", "FLASH_BWD_CASES", "FLASH_BWD_TOL", "flash_bwd_case",
+           "BAG_BWD_CASES", "BAG_BWD_TOL", "bag_bwd_case", "AGG_T_CASES",
+           "AGG_T_TOL", "agg_t_case", "grads_close", "ADAMW_CASES",
+           "adamw_case"]
 
 
 def random_graph(n: int, deg: int, n_labels: int, seed: int,
@@ -480,3 +488,211 @@ def agg_case(case, device, seed=0) -> float:
     want = gather_aggregate_ref(feats, nbrs, mean=mean)
     return _close_or_raise(f"gather_aggregate {name}", got, want,
                            AGG_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: each against autograd of its plain forward on f32 copies
+# ---------------------------------------------------------------------------
+
+def grads_close(name: str, got: torch.Tensor, want: torch.Tensor, *,
+                scaled: float = 0.0, rtol: float = 0.0,
+                atol: float = 0.0) -> float:
+    """|got − want| ≤ atol + rtol·|want| + scaled·max|want| elementwise;
+    returns the largest absolute difference, raises past the bound."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    diff = (got - want).abs()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    bound = atol + rtol * want.abs() + scaled * scale
+    err = float(diff.max()) if diff.numel() else 0.0
+    if (diff > bound).any():
+        worst = float((diff - bound).max())
+        raise AssertionError(f"{name}: max abs err {err} (max |want| "
+                             f"{scale:.4g}) past atol {atol} + rtol {rtol}"
+                             f"·|want| + {scaled}·max|want| by {worst:.3g}")
+    return err
+
+
+def _same_bytes(name: str, a, b) -> None:
+    for x, y in zip(a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: a second launch gave other bytes")
+
+
+# flash backward: FLASH_CASES' geometry plus the training shape of
+# qwen3-1.7b (B 1 of the trainer's 4; hd 128, GQA 16 / 8), ragged S with
+# GQA, window and softcap in both dtypes, non-causal and hd 16.
+FLASH_BWD_CASES = [
+    ("qwen3-1.7b-train", 1, 1024, 16, 8, 128, _BF16, True, None, None),
+    ("ragged-gqa", 2, 1000, 4, 2, 64, _BF16, True, None, None),
+    ("ragged-gqa-f32", 1, 333, 4, 2, 64, _F32, True, None, None),
+    ("window512-softcap50", 1, 1100, 4, 2, 128, _BF16, True, 512, 50.0),
+    ("window16-softcap30-f32", 2, 130, 4, 2, 32, _F32, True, 16, 30.0),
+    ("non-causal", 2, 192, 4, 2, 64, _BF16, False, None, None),
+    ("non-causal-window-f32", 1, 77, 2, 1, 16, _F32, False, 8, None),
+    ("hd16-mqa", 2, 64, 4, 1, 16, _BF16, True, None, None),
+]
+# relative to the largest gradient: bf16 rounds the forward's O (which D =
+# rowsum(dO ∘ O) reads) and every output; f32 sums in another order
+FLASH_BWD_TOL = {_F32: 1e-4, _BF16: 2e-2}
+
+
+def flash_bwd_case(case, device, seed=0) -> float:
+    """`ops.FlashAttention`'s backward kernels against autograd of
+    `flash_attention_ref` on f32 copies of q, k, v and dO; every gradient
+    within `FLASH_BWD_TOL` of the largest, and a second backward identical
+    byte for byte.  Returns the largest absolute difference."""
+    from ..kernels.flash_attention.ops import FlashAttention
+
+    name, B, S, H, KV, hd, dtype, causal, window, softcap = case
+    q, k, v = flash_inputs(B, S, H, KV, hd, dtype, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.as_tensor(rng.normal(size=(B, S, H, hd)),
+                           dtype=torch.float32).to(device=device, dtype=dtype)
+
+    def kernel_grads():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = FlashAttention.apply(*leaves, causal, window, softcap)
+        out.backward(dout)
+        return [t.grad for t in leaves]
+
+    got = kernel_grads()
+    _same_bytes(f"flash_attention_bwd {name}", got, kernel_grads())
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    flash_attention_ref(*leaves, causal=causal, window=window,
+                        softcap=softcap).backward(dout.float())
+    return max(grads_close(f"flash_attention_bwd {name} d{n}", g, t.grad,
+                           scaled=FLASH_BWD_TOL[dtype])
+               for n, g, t in zip("qkv", got, leaves))
+
+
+# bag backward: (name, T, R, D, B, H, dtype, mean, weighted, over).  Few
+# rows (R 50) so ids repeat across bags; pads and ids ≥ R; DLRM's T 26 and
+# D 64; D 8 and an odd D 9; both combiners, weights.
+BAG_BWD_CASES = [
+    (f"T{T}-R{R}-D{D}-H{H}-{str(dt)[6:]}-{'mean' if mean else 'sum'}"
+     f"{'-weighted' if w else ''}{'-over' if over else ''}",
+     T, R, D, 64, H, dt, mean, w, over)
+    for dt in (_F32, _BF16)
+    for T, R, D, H, mean, w, over in (
+        (26, 50, 64, 1, False, False, False),
+        (26, 1000, 64, 1, False, False, False),
+        (3, 50, 64, 4, True, True, True),
+        (3, 50, 9, 4, False, False, True),
+        (2, 20, 8, 3, True, False, False))
+]
+# one f32 sum a row, rounded once: half a unit in the last place of the
+# result's dtype, relative (bf16 2^-9, f32 2^-24 and the order of the sum)
+BAG_BWD_TOL = {_F32: (1e-5, 2e-5), _BF16: (4e-3, 1e-5)}
+
+
+def bag_bwd_case(case, device, seed=0) -> float:
+    """`ops.EmbeddingBag`'s backward kernel against autograd of
+    `embedding_bag_ref` on f32 copies of the tables and d_out, within
+    `BAG_BWD_TOL` (rtol, atol); a second backward identical byte for byte.
+    Returns the largest absolute difference."""
+    from ..kernels.embedding_bag.ops import EmbeddingBag
+
+    name, T, R, D, B, H, dtype, mean, weighted, over = case
+    tables, ids, w = bag_inputs(T, R, D, B, H, dtype, weighted, device, seed,
+                                over)
+    rng = np.random.default_rng(seed + 1)
+    d_out = torch.as_tensor(rng.normal(size=(B, T, D)),
+                            dtype=torch.float32).to(device=device, dtype=dtype)
+
+    def kernel_grad():
+        t = tables.detach().clone().requires_grad_()
+        EmbeddingBag.apply(t, ids, w, mean).backward(d_out)
+        return t.grad
+
+    got = kernel_grad()
+    _same_bytes(f"embedding_bag_bwd {name}", [got], [kernel_grad()])
+    t32 = tables.detach().float().requires_grad_()
+    embedding_bag_ref(t32, ids, None if w is None else w.float(),
+                      mean=mean).backward(d_out.float())
+    rtol, atol = BAG_BWD_TOL[dtype]
+    return grads_close(f"embedding_bag_bwd {name}", got, t32.grad,
+                       rtol=rtol, atol=atol)
+
+
+# aggregate transpose: AGG_CASES' geometry (ragged N, Dmax 1 / 15 / 40,
+# F 7, 8, 128, 602, a third of the rows all pad), and hub nodes: N 50 with
+# Dmax 40 names each node ~26 times
+AGG_T_CASES = [
+    (f"N{N}-F{F}-D{Dm}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
+     N, F, Dm, dt, mean)
+    for dt in (_F32, _BF16) for mean in (False, True)
+    for N, F, Dm in ((1001, 128, 15), (1001, 602, 15), (203, 602, 1),
+                     (333, 7, 40), (50, 8, 40))
+]
+AGG_T_TOL = BAG_BWD_TOL
+
+
+def agg_t_case(case, device, seed=0) -> float:
+    """`ops.GatherAggregate`'s transpose kernel against autograd of
+    `gather_aggregate_ref` on f32 copies of the features and d_out, within
+    `AGG_T_TOL` (rtol, atol); a second backward identical byte for byte.
+    Returns the largest absolute difference."""
+    from ..kernels.gather_aggregate.ops import GatherAggregate
+
+    name, N, F, Dmax, dtype, mean = case
+    feats, nbrs = agg_inputs(N, F, Dmax, dtype, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    d_out = torch.as_tensor(rng.normal(size=(N, F)),
+                            dtype=torch.float32).to(device=device, dtype=dtype)
+
+    def kernel_grad():
+        f = feats.detach().clone().requires_grad_()
+        GatherAggregate.apply(f, nbrs, mean).backward(d_out)
+        return f.grad
+
+    got = kernel_grad()
+    _same_bytes(f"gather_aggregate_t {name}", [got], [kernel_grad()])
+    f32 = feats.detach().float().requires_grad_()
+    gather_aggregate_ref(f32, nbrs, mean=mean).backward(d_out.float())
+    rtol, atol = AGG_T_TOL[dtype]
+    return grads_close(f"gather_aggregate_t {name}", got, f32.grad,
+                       rtol=rtol, atol=atol)
+
+
+# AdamW: (name, n, offset).  A vector of 4-element groups (the 16-byte
+# path), odd lengths and a view one element off its alignment (the scalar
+# path), one element, and more elements than the grid's threads
+ADAMW_CASES = [("n4096", 4096, 0), ("n1", 1, 0), ("n1001", 1001, 0),
+               ("n4096-offset1", 4096, 1), ("n3000017", 3_000_017, 0),
+               ("n4194304", 4_194_304, 0)]
+
+
+def adamw_case(case, device, seed=0) -> float:
+    """The fused AdamW kernel against its plain version on the same random
+    parameter, gradient, moments and scalars: equal bit for bit (both
+    round the same f32 operations in the same order); returns 0.0."""
+    from ..kernels.adamw.kernel import adamw_fused
+    from ..kernels.adamw.ref import adamw_ref
+    from ..train.optimizer import AdamWConfig
+
+    name, n, offset = case
+    rng = np.random.default_rng(seed)
+    cfg = AdamWConfig(lr=1e-3, weight_decay=0.1)
+
+    def leaf(scale, positive=False):
+        a = rng.normal(size=n) * scale
+        store = torch.zeros(offset + n, dtype=torch.float32, device=device)
+        store[offset:] = torch.as_tensor(np.abs(a) if positive else a)
+        return store[offset:]
+
+    p, g, m, v = leaf(1.0), leaf(3.0), leaf(0.1), leaf(0.01, positive=True)
+    scalars = torch.tensor([0.37, 2.5e-4, 0.271, 0.0975], device=device)
+    want = [t.clone() for t in (p, m, v)]
+    adamw_ref(*[want[0], g, want[1], want[2]], scalars, cfg)
+    adamw_fused(p, g, m, v, scalars, cfg)
+    for got_t, want_t, what in zip((p, m, v), want, "pmv"):
+        if not torch.equal(got_t, want_t):
+            err = float((got_t - want_t).abs().max())
+            raise AssertionError(f"adamw {name}: {what} differs from the "
+                                 f"plain version by up to {err}")
+    return 0.0

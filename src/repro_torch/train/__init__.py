@@ -1,2 +1,3 @@
-"""Training utilities of the port: atomic checkpoints (`checkpoint`) and
-`elastic.resume_or_init`."""
+"""Training utilities of the port: AdamW (`optimizer`), atomic checkpoints
+(`checkpoint`), the step guard, heartbeat and `resume_or_init`
+(`elastic`)."""

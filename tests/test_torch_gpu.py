@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
 and the serving, DLRM and GraphSAGE paths on the card against the same
-runs on the CPU.
+runs on the CPU; since the training slice also the three backward kernels
+against autograd of their plain versions, and one train step of each
+family on the card against the same step on the CPU.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for a device and skips
 where ``torch.cuda.is_available()`` is false.  On the card run them with
@@ -35,8 +37,10 @@ from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
 from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
 from repro_torch.models.gnn.graphsage import sage_apply
 from repro_torch.testing.parity import (
-    AGG_CASES, BAG_CASES, FLASH_CASES, MIS_EDGE_CASES, agg_case, bag_case,
-    flash_case, frontier_case, mis_case, mis_edge_case, patterns_by_k,
+    ADAMW_CASES, AGG_CASES, AGG_T_CASES, BAG_BWD_CASES, BAG_CASES,
+    FLASH_BWD_CASES, FLASH_CASES, MIS_EDGE_CASES, adamw_case, agg_case,
+    agg_t_case, bag_bwd_case, bag_case, flash_bwd_case, flash_case,
+    flash_inputs, frontier_case, mis_case, mis_edge_case, patterns_by_k,
     random_graph,
 )
 
@@ -559,3 +563,121 @@ def test_reduced_sage_cuda_matches_cpu(cuda):
                                rtol=2e-2)
     loss = arch.loss_fn("minibatch_lg", reduced=True)(cuda_model, gb_cuda)
     assert torch.isfinite(loss)
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels and one train step per family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=[c[0] for c in FLASH_BWD_CASES])
+def test_flash_attention_bwd_matches_plain(cuda, case):
+    flash_bwd_case(case, cuda)          # raises past FLASH_BWD_TOL
+
+
+@pytest.mark.parametrize("case", BAG_BWD_CASES,
+                         ids=[c[0] for c in BAG_BWD_CASES])
+def test_embedding_bag_bwd_matches_plain(cuda, case):
+    bag_bwd_case(case, cuda)            # raises past BAG_BWD_TOL
+
+
+@pytest.mark.parametrize("case", AGG_T_CASES, ids=[c[0] for c in AGG_T_CASES])
+def test_gather_aggregate_t_matches_plain(cuda, case):
+    agg_t_case(case, cuda)              # raises past AGG_T_TOL
+
+
+@pytest.mark.parametrize("case", ADAMW_CASES, ids=[c[0] for c in ADAMW_CASES])
+def test_adamw_matches_plain(cuda, case):
+    adamw_case(case, cuda)              # raises unless bit for bit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_is_the_rows_logsumexp(cuda, dtype):
+    import math
+    q, k, v = flash_inputs(1, 200, 4, 2, 64, dtype, cuda, seed=3)
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, 200, 64).contiguous()
+                  for t in (q, k, v))
+    out, lse = flash_attention_bhsd(qf, kf, vf, causal=True, window=50,
+                                    return_lse=True)
+    s = torch.einsum("hsd,htd->hst", qf.float(),
+                     kf.float().repeat_interleave(2, 0)) / math.sqrt(64)
+    i = torch.arange(200, device=cuda)
+    mask = (i[None] <= i[:, None]) & (i[:, None] - i[None] < 50)
+    want = torch.logsumexp(torch.where(mask, s, -1e30), -1)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, flash_attention_bhsd(qf, kf, vf, causal=True,
+                                                 window=50))
+
+
+def _train_pair(cuda, build, batch_cpu, batch_cuda, step):
+    """One train step of the same model and state on the CPU and the card;
+    returns (cpu loss, cuda loss)."""
+    from repro_torch.train.step import init_opt_state
+
+    cpu_model = build()
+    cuda_model = copy.deepcopy(cpu_model).to(cuda)
+    want, _, s_cpu = step(cpu_model, init_opt_state(cpu_model), *batch_cpu)
+    got, _, s_cuda = step(cuda_model, init_opt_state(cuda_model), *batch_cuda)
+    torch.cuda.synchronize()
+    assert int(s_cpu.step) == int(s_cuda.step) == 1
+    return float(want), float(got)
+
+
+def test_reduced_lm_train_step_cuda_matches_cpu(cuda):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_bhsd,
+    )
+    arch = get_arch("qwen3-1.7b")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, QWEN3_REDUCED.vocab, (2, 65)), dtype=torch.int32)
+    before = flash_attention_bwd_bhsd.launches
+    want, got = _train_pair(
+        cuda, lambda: arch.init(torch.Generator().manual_seed(0),
+                                reduced=True, device="cpu", train=True),
+        (toks[:, :-1], toks[:, 1:]), (toks[:, :-1].to(cuda),
+                                      toks[:, 1:].to(cuda)),
+        arch.step_fn("train_4k"))
+    assert flash_attention_bwd_bhsd.launches - before == QWEN3_REDUCED.n_layers
+    # the flash kernel against the CPU's dense f32-softmax attention, both
+    # bf16 forwards: the loss within 1e-3 relative
+    assert got == pytest.approx(want, rel=1e-3)
+
+
+def test_reduced_dlrm_train_step_cuda_matches_cpu(cuda):
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_bwd_tbh
+    arch = get_arch("dlrm-rm2")
+    x = arch.inputs("train_batch", reduced=True, seed=1, device="cpu")
+    args = [x["dense"], x["sparse_idx"], x["labels"]]
+    before = embedding_bag_bwd_tbh.launches
+    want, got = _train_pair(
+        cuda, lambda: arch.init(torch.Generator().manual_seed(0),
+                                reduced=True, device="cpu", train=True),
+        args, [a.to(cuda) for a in args], arch.step_fn("train_batch"))
+    assert embedding_bag_bwd_tbh.launches - before == 1
+    assert got == pytest.approx(want, rel=1e-3)
+
+
+def test_reduced_sage_train_step_cuda_matches_cpu(cuda):
+    from repro_torch.kernels.gather_aggregate.kernel import (
+        gather_aggregate_t_nf,
+    )
+    arch = get_arch("graphsage-reddit")
+    before = gather_aggregate_t_nf.launches
+    want, got = _train_pair(
+        cuda, lambda: arch.init("minibatch_lg",
+                                torch.Generator().manual_seed(0),
+                                reduced=True, device="cpu", train=True),
+        [arch.reduced_inputs("minibatch_lg", device="cpu")],
+        [arch.reduced_inputs("minibatch_lg", device=cuda)],
+        arch.step_fn("minibatch_lg", reduced=True))
+    assert gather_aggregate_t_nf.launches - before == 1   # layer 1 only
+    assert got == pytest.approx(want, rel=1e-2)
+
+
+def test_train_cli_reduced_on_cuda(cuda, tmp_path, capsys):
+    from repro_torch.launch import train as cli
+    assert cli.main(["--reduced", "--steps", "3", "--batch", "2", "--seq",
+                     "64", "--log-every", "1", "--ckpt-dir", str(tmp_path),
+                     "--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[train] step=") == 3 and "max_memory_allocated=" in out

@@ -257,8 +257,15 @@ def test_shapes_specs_and_flops_equal_reference(shape):
 
 
 def test_train_kind_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("dlrm-rm2").step_fn("train_batch")
+    # the train step needs f32 masters (init(train=True)): on a serving
+    # model, whose bf16 weights are frozen, it raises before any work
+    arch = get_arch("dlrm-rm2")
+    model = arch.init(torch.Generator().manual_seed(0), reduced=True,
+                      device="cpu")
+    x = arch.inputs("train_batch", reduced=True, device="cpu")
+    with pytest.raises(ValueError, match="train=True"):
+        arch.step_fn("train_batch")(model, None, x["dense"],
+                                    x["sparse_idx"], x["labels"])
 
 
 def test_new_modules_import_with_jax_blocked():

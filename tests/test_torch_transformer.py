@@ -127,7 +127,7 @@ def test_common_blocks_match_reference(dtype):
     assert tcommon.softcap(tx, None) is tx
 
     W = rng.normal(size=(16, 24)).astype(np.float32)
-    dense = tcommon.Dense(16, 24)
+    dense = tcommon.for_serving(tcommon.Dense(16, 24))
     with torch.no_grad():
         dense.weight.copy_(torch.as_tensor(W.T.copy()))
     got = dense(tx)
