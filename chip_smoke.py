@@ -8,7 +8,10 @@ line):
   1. build   — compile the nine CUDA kernels from ``src/repro_torch/csrc``
                (one nvcc per source, in parallel), print the build time and
                the ptxas reports; fails unless the flash library's SASS holds
-               HGMMA (tensor-core) instructions;
+               HGMMA (tensor-core) instructions and the bf16 backward's main
+               kernel (`flash_bwd_wgmma_kernel`) HGMMA and no HMMA
+               (mma.sync); prints the backward's ptxas report (registers,
+               spills) by function;
   2. card    — print ``nvidia-smi --query-gpu=name,power.limit``;
   3. parity  — each kernel against its plain torch version on the card:
                mining kernels compared exactly (frontier expansion at
@@ -33,10 +36,15 @@ line):
                kernels against autograd of their plain forwards on f32
                copies, each launched twice with identical bytes: the
                flash backward (`FLASH_BWD_CASES`: the trainer's qwen3
-               shape, ragged S with GQA, window + softcap, non-causal,
-               hd 16 MQA, bf16 and f32), the bag backward
+               shape and its train_4k length S 4 096, ragged S with GQA,
+               window + softcap at hd 64 and 128, non-causal, hd 128 at
+               S 1, 65, 129 and G 4, hd 16 MQA, bf16 and f32), the bag
+               backward
                (`BAG_BWD_CASES`: repeated ids, pads, ids ≥ R, T 26, D 9)
-               and the aggregate transpose (`AGG_T_CASES`, hub nodes); the
+               and the aggregate transpose (`AGG_T_CASES`: hub nodes, one
+               node of 5 000 destinations among mostly empty ones, a view
+               one element off its alignment on the narrow path with the
+               16-byte path's bytes); the
                fused AdamW against its plain version, bit for bit
                (`ADAMW_CASES`);
   4. golden  — the port's mining CLI on cuda for gnutella ×0.1, σ = 20, mis,
@@ -88,8 +96,10 @@ line):
                AdamW) over the sampler's blocks 0.., counts zeroed and
                read around them (two aggregates and one transpose a
                step), block 0's loss falling, the transpose timed at
-               layer 1 and held there against autograd of the plain
-               aggregate (f32 copies), launched twice (identical bytes);
+               layer 1 (the out-degrees' max, p99 and empty share; the
+               CSR's build; a SHA-256 of the output) and held there against
+               autograd of the plain aggregate (f32 copies), launched
+               twice (identical bytes);
   9. kernels — mining kernels vs plain versions again on real blocks of the
                mico graph at the main path's shapes (the frontier's hub
                block at level 2 also by pass, with its random loads and
@@ -126,7 +136,8 @@ line):
                loss, its step time, tokens/s,
                peak memory and the ~21 GB final checkpoint (deleted
                after); then the flash backward timed at the per-layer
-               shape (held against autograd of the plain version there)
+               shape (held against autograd of the plain version there;
+               SDPA's backward beside it under one pinned backend)
                and AdamW at the embedding leaf (bit for bit against its
                plain version there; ``torch._fused_adamw_`` timed beside
                it, there and over all leaves).  train-resume, in a child
@@ -275,6 +286,14 @@ def _peak_extra_bytes(fn, out_bytes: int) -> int:
     return extra
 
 
+def _sha256(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes (copied to the host)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
 def _strip_wall_clock(d: dict) -> dict:
     d = dict(d)
     d.pop("elapsed_s")
@@ -318,6 +337,57 @@ def phase_build():
     _log(f"sass flash_attention: {hgmma}")
     if not hgmma:
         raise AssertionError("no HGMMA instruction in the flash kernel's SASS")
+    # the bf16 backward at hd 64 / 128: HGMMA and no HMMA (mma.sync) in its
+    # main kernel; its ptxas report (registers, spills) by function
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("flash_attention_bwd"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    for fn, counts in _sass_mma_by_function(sass).items():
+        _log(f"sass flash_attention_bwd {fn}: {counts}")
+        if "flash_bwd_wgmma_kernel" in fn and (
+                not counts["HGMMA"] or counts["HMMA"]):
+            raise AssertionError(f"{fn}: the wgmma backward must issue "
+                                 f"HGMMA and no HMMA: {counts}")
+    for line in _ptxas_by_function(
+            _build.ptxas_report("flash_attention_bwd")):
+        _log(f"ptxas flash_attention_bwd {line}")
+
+
+def _sass_mma_by_function(sass: str) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instruction counts of each function
+    in a `cuobjdump -sass` listing, by the function's (mangled) name."""
+    import re
+
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    out[fn][op] += 1
+    return out
+
+
+def _ptxas_by_function(report: str) -> list:
+    """`-Xptxas -v` lines reduced to one per function: its (mangled) name,
+    registers, stack, spill stores and loads."""
+    import re
+
+    lines, fn, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "Used" in line:
+            lines.append(f"{fn}: {line.split(':', 1)[1].strip()}; {spill}")
+            fn, spill = None, ""
+    return lines
 
 
 def phase_card() -> str:
@@ -1501,9 +1571,7 @@ def _flash_bwd_row(dev) -> dict:
     """The flash backward at the trainer's per-layer shape: held against
     autograd of the plain version on f32 copies (`FLASH_BWD_TOL`) and
     launched twice (identical bytes); time beside its bound, the plain
-    version's and SDPA's backward."""
-    import torch.nn.functional as F
-
+    version's and SDPA's backward under a pinned backend."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bhsd, flash_attention_bwd_bhsd,
@@ -1541,12 +1609,7 @@ def _flash_bwd_row(dev) -> dict:
     plain_ms = _time_ms(lambda: torch.autograd.grad(out, leaves, dref,
                                                     retain_graph=True), reps=3)
     del out
-    q4, k4, v4 = (t.view(B, -1, S, hd).detach().requires_grad_()
-                  for t in (qf, kf, vf))
-    sd = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                        enable_gqa=True)
-    library_ms = _time_ms(lambda: torch.autograd.grad(
-        sd, (q4, k4, v4), do.view(B, H, S, hd), retain_graph=True), reps=10)
+    library_ms, backend = _sdpa_bwd_ms(qf, kf, vf, do, B)
     # five products of 2·hd FLOPs per causal-live pair (2.5× the
     # forward's two); bytes: q, k, v, o, dO and dq, dk, dv once (bf16), lse
     flops = 2.5 * 4.0 * hd * B * H * S * (S + 1) / 2
@@ -1561,8 +1624,39 @@ def _flash_bwd_row(dev) -> dict:
          f"(within {FLASH_BWD_TOL[torch.bfloat16]}·max|grad|, max_abs_err="
          f"{err:.3g}), a second launch byte-identical; ms={ms:.4f} "
          f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms={plain_ms:.3f} "
-         f"sdpa_bwd_ms={library_ms:.4f} bound_ms={row['bound_ms']:.4f}")
+         f"sdpa_bwd_ms={library_ms:.4f} ({backend}) "
+         f"bound_ms={row['bound_ms']:.4f}")
     return row
+
+
+def _sdpa_bwd_ms(qf, kf, vf, do, B) -> tuple:
+    """ms of SDPA's backward alone (CUDA events) at the kernel's inputs,
+    under one pinned backend (flash, else memory-efficient): K and V are
+    expanded to the query heads outside the timed region, so the backend
+    needs no GQA; returns (ms, the backend's name)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    BH, S, hd = qf.shape
+    G = BH // kf.shape[0]
+    q4 = qf.view(B, -1, S, hd).detach().requires_grad_()
+    k4, v4 = (t.repeat_interleave(G, dim=0).view(B, -1, S, hd).detach()
+              .requires_grad_() for t in (kf, vf))
+    g4 = do.view(B, -1, S, hd)
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                     is_causal=True)
+            break
+        except RuntimeError as e:
+            _log(f"kernels: SDPA refuses {backend.name} here ({e})")
+    else:
+        raise RuntimeError("SDPA ran under neither pinned backend")
+    ms = _time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g4,
+                                              retain_graph=True), reps=10)
+    return ms, backend.name
 
 
 def phase_train_lm(out: Path, dev) -> tuple:
@@ -2012,6 +2106,12 @@ def phase_train_gnn(dev, gnn: dict) -> tuple:
     if not torch.equal(got, gather_aggregate_t_nf(d_out, indptr, dst, deg)):
         raise AssertionError("gather_aggregate_t: a second launch at layer "
                              "1's shape gave other bytes")
+    digest = _sha256(got)
+    # the out-degrees: does one node's chain set the kernel's tail?
+    out_deg = (indptr[1:] - indptr[:-1]).float()
+    deg_max = int(out_deg.max())
+    deg_p99 = float(torch.quantile(out_deg, 0.99))
+    deg_zero = float((out_deg == 0).float().mean())
     h32 = torch.zeros((N, Fd), dtype=torch.float32, device=dev,
                       requires_grad=True)
     gather_aggregate_ref(h32, nbrs, mean=True).backward(d_out.float())
@@ -2060,10 +2160,12 @@ def phase_train_gnn(dev, gnn: dict) -> tuple:
          f"== autograd of the plain aggregate on f32 copies (rtol, atol = "
          f"{AGG_T_TOL[torch.bfloat16]}, max_abs_err={err:.3g}), a second "
          f"launch byte-identical; "
-         f"ms={ms:.4f} (the out-neighbour CSR's sort {csr_ms:.4f} ms more) "
+         f"ms={ms:.4f} (out-degree max {deg_max}, p99 {deg_p99:.1f}, share "
+         f"of nodes without out-edges {deg_zero:.3f}; the out-neighbour "
+         f"CSR's build {csr_ms:.4f} ms more) "
          f"plain_ms={plain_ms:.3f} sparse_mm_ms={library_ms:.4f} "
          f"({str(lib_dtype)[6:]}) bound_ms={row['bound_ms']:.4f} "
-         f"({nbytes} bytes)")
+         f"({nbytes} bytes); output sha256 {digest}")
     del model, state, gbs
     torch.cuda.empty_cache()
     return launches, row

@@ -54,14 +54,14 @@
 // softcapped) scores, f32 (BH, S), when the caller passes an `lse` buffer:
 // the training path's backward kernels (flash_attention_bwd.cu) rebuild P
 // from it.  Serving passes none and stores nothing more.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 // ---------------------------------------------------------------- bf16 ----
 
@@ -69,210 +69,6 @@ constexpr int kTQ = 128;          // query rows per CTA: two warpgroups of 64
 constexpr int kTK = 64;           // key rows per K/V tile
 constexpr int kStages = 2;        // K/V tiles in flight in shared memory
 constexpr int kTThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Shared-memory layout of a (rows × HD) bf16 tile: HD is cut into column
-// blocks of CB ≤ 64 elements, each a (rows × W bytes) matrix in the W-byte
-// swizzle that `wgmma` descriptors name (layout 1 = 128 B, 2 = 64 B, 3 =
-// 32 B): the 16-byte chunk index of a row is XORed with the row's bits
-// above the swizzle row, 8 rows to a pattern.
-template <int HD>
-struct Swz {
-  static constexpr int CB = HD < 64 ? HD : 64;
-  static constexpr int W = 2 * CB;
-  static constexpr int kChunks = W / 16;   // 16-byte chunks per swizzle row
-  static constexpr uint64_t kLayout = W == 128 ? 1 : (W == 64 ? 2 : 3);
-
-  // byte offset of 16-byte chunk c (of HD / 8) of row r, in a tile of R rows
-  static __device__ __forceinline__ uint32_t offset(int R, int r, int c) {
-    const uint32_t off = (c / kChunks) * R * W + r * W + (c % kChunks) * 16;
-    return off ^ (((off >> 7) & (kChunks - 1)) << 4);
-  }
-};
-
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-// one arrival that also expects `bytes` of copies to complete on `bar`
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-// wait until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// box (c0, c1, c2) of a 3-d tensor map → shared memory, completing on bar
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-// 2^x in one MUFU instruction (denormal results flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64, f32) = a (64 x 16) * b (16 x 64) [+ d], a and b K-major in
-// shared memory; the product is added to d unless scale_d is 0
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 16, f32) = a (64 x 16, bf16 fragments in registers) * b (16 x
-// 16, MN-major in shared memory: the transpose bit is set) [+ d]
-__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// d (64 x 32, f32) = a (64 x 16, bf16 fragments in registers) * b (16 x
-// 32, MN-major in shared memory: the transpose bit is set) [+ d]
-__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// d (64 x 64, f32) = a (64 x 16, bf16 fragments in registers) * b (16 x
-// 64, MN-major in shared memory: the transpose bit is set) [+ d]
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// d (64 x 128, f32) = a (64 x 16, bf16 fragments in registers) * b (16 x
-// 128, MN-major in shared memory: the transpose bit is set) [+ d]
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 16) wgmma_rs_m64n16(d, a, db, 1);
-  if constexpr (HD == 32) wgmma_rs_m64n32(d, a, db, 1);
-  if constexpr (HD == 64) wgmma_rs_m64n64(d, a, db, 1);
-  if constexpr (HD == 128) wgmma_rs_m64n128(d, a, db, 1);
-}
-
-// rows [row0, row0 + R) of head row `head` of a (rows, S, HD) bf16 tensor →
-// the swizzled tile at shared address dst, one TMA box per column block
-// (the tensor map's swizzle is the tile's); rows past S arrive as zeros
-template <int HD, int R>
-__device__ __forceinline__ void tma_tile(const CUtensorMap* map, int row0,
-                                         int head, uint32_t dst, uint32_t bar) {
-  using L = Swz<HD>;
-#pragma unroll
-  for (int b = 0; b < HD / L::CB; ++b)
-    tma_load_3d(dst + b * R * L::W, map, bar, b * L::CB, row0, head);
-}
 
 template <int HD>
 constexpr size_t bf16_smem_bytes() {
@@ -451,9 +247,9 @@ __global__ void __launch_bounds__(kTThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<HD>(oacc, pf[kk],
+      wgmma_rs_n<HD>(oacc, pf[kk],
                    smem_desc(sV(st) + 16 * kk * L::W, kTK * L::W, 8 * L::W,
-                             L::kLayout));
+                             L::kLayout), 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(oacc);
@@ -672,48 +468,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled of libcuda, found through the runtime (no -lcuda)
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// a (rows, S, HD) bf16 tensor as TMA boxes of (box_rows × one column block),
-// in the swizzle of `Swz<HD>`; rows past S read as zeros
-template <int HD>
-int tensor_map(CUtensorMap* map, const void* ptr, int rows, int S,
-               int box_rows) {
-  using L = Swz<HD>;
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)rows};
-  cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)S * HD * 2};
-  cuuint32_t box[3] = {(cuuint32_t)L::CB, (cuuint32_t)box_rows, 1};
-  cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      L::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                  : (L::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                : CU_TENSOR_MAP_SWIZZLE_32B);
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                      const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,

@@ -7,8 +7,10 @@ headers: the wrappers pass raw device pointers (``tensor.data_ptr()``) and
 PyTorch's current stream, so a build takes seconds, not minutes.
 
 Libraries land in ``build/repro_torch_ext/`` under the repository root
-(``$REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+(``$REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the source,
+the headers it includes from ``csrc/`` (``#include "x.cuh"``, followed
+through headers) and the flags, so an edit to a source or to a header it
+includes rebuilds it and an unchanged one is reused.
 `build_all` starts one ``nvcc`` per source, all together.  Every CUDA
 kernel of a source is named with that source's prefix (`KERNEL_PREFIX`), so
 a profile can sum a port kernel's device time over all its launches
@@ -27,7 +29,7 @@ from typing import Dict, List, Optional
 
 __all__ = ["SOURCES", "KERNEL_PREFIX", "build_all", "load_library",
            "build_dir", "ptxas_report", "library_path", "kernel_function",
-           "kernel_source"]
+           "kernel_source", "included_headers"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -74,9 +76,30 @@ def _nvcc() -> str:
                        "use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: Path) -> List[Path]:
+    """The headers ``source`` includes by a quoted ``#include`` that exist
+    beside it, and theirs in turn, each once, in the order first met."""
+    seen: List[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        for m in _INCLUDE.finditer(path.read_bytes()):
+            header = path.parent / m.group(1).decode()
+            if header.exists() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    source = SOURCES[name]
+    text = source.read_bytes()
+    for header in included_headers(source):
+        text += header.name.encode() + header.read_bytes()
+    h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}_{h}.so"
 
 

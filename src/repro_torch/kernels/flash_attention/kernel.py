@@ -14,9 +14,11 @@ chosen by dtype inside the library, with no path from one to the other:
 
 The source explains both designs.  With ``return_lse`` the forward also
 returns each row's log-sum-exp, f32 (BH, S), which the backward
-(`flash_attention_bwd_bhsd`, ``csrc/flash_attention_bwd.cu``: dQ, dK and
-dV on the CUDA cores, no atomics) rebuilds P from.  The libraries are
-built on first use (`repro_torch.kernels._build`).
+(`flash_attention_bwd_bhsd`, ``csrc/flash_attention_bwd.cu``) rebuilds P
+from: bf16 at hd 64 / 128 in one ``wgmma`` kernel fed by TMA, with dQ
+summed across key tiles in a fixed order (``schedule.py``); bf16 at hd
+16 / 32 on ``mma.sync``; f32 on the CUDA cores.  The libraries are built
+on first use (`repro_torch.kernels._build`).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from .._build import load_library
+from .schedule import bwd_path, bwd_workspace
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,8 +51,8 @@ def _bwd_lib():
     lib = load_library("flash_attention_bwd")
     if lib.flash_attention_bwd_launch.argtypes is None:
         lib.flash_attention_bwd_launch.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            _I, _I, _F, _F, _P]
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+            _I, _I, _I, _I, _F, _F, _P]
         lib.flash_attention_bwd_launch.restype = _I
     return lib
 
@@ -134,7 +137,9 @@ def flash_attention_bwd_bhsd(q, k, v, o, dout, lse, *, causal: bool = True,
     """The gradients (dq, dk, dv) of `flash_attention_bhsd` at (q, k, v),
     given its output ``o``, the output's gradient ``dout`` (both q's shape
     and dtype) and its ``lse``.  dk / dv sum over each KV row's G query
-    rows.  Deterministic: the same inputs give the same bytes."""
+    rows.  Deterministic: the same inputs give the same bytes.  The
+    kernels follow ``schedule.bwd_path`` (dtype, hd); the scratch each
+    needs is allocated here (``schedule.bwd_workspace``)."""
     BH, BKV, S, hd = _check_qkv(
         q, k, v, window, softcap,
         extra=(("o", o, tuple(q.shape), q.dtype),
@@ -143,14 +148,21 @@ def flash_attention_bwd_bhsd(q, k, v, o, dout, lse, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if S == 0 or BH == 0:
         return dq, dk, dv
-    dvec = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    work = bwd_workspace(BH, S, hd, bwd_path(q.dtype == torch.bfloat16, hd))
+    dvec = torch.empty(work["dvec"], dtype=torch.float32, device=q.device)
+    dq_acc = (torch.empty(work["dq_acc"], dtype=torch.float32,
+                          device=q.device) if "dq_acc" in work else None)
+    sync = (torch.empty(work["sync"], dtype=torch.int32, device=q.device)
+            if "sync" in work else None)
     lib = _bwd_lib()
     dev = q.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(),
+            None if sync is None else sync.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), BH, BKV, S, hd, DTYPES[q.dtype],
             *_mask_args(causal, window, softcap), 1.0 / math.sqrt(hd), stream)
     if err != 0:

@@ -2,10 +2,11 @@
 
 Replaces the TPU kernel ``_agg_kernel`` / ``gather_aggregate_pallas`` of
 ``src/repro/kernels/gather_aggregate/kernel.py``: one warp per node sums
-its valid neighbours' feature rows in f32, in neighbour order.  `gather_aggregate_t_nf` binds its transpose
-(``csrc/gather_aggregate_t.cu``): the features' gradient as a gather over
-the out-neighbour table, one warp a node, deterministic.  The libraries
-are built on first use (`repro_torch.kernels._build`).
+its valid neighbours' feature rows in f32, in neighbour order.
+`gather_aggregate_t_nf` binds its transpose (``csrc/gather_aggregate_t.cu``):
+the features' gradient as a gather over the out-neighbour table,
+deterministic, with 16-byte lanes where the rows allow (`aggt_mode`).  The
+libraries are built on first use (`repro_torch.kernels._build`).
 """
 from __future__ import annotations
 
@@ -77,43 +78,57 @@ def _t_lib():
     lib = load_library("gather_aggregate_t")
     if lib.gather_aggregate_t_launch.argtypes is None:
         lib.gather_aggregate_t_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
-                                                  _I, _P]
+                                                  _I, _I, _P]
         lib.gather_aggregate_t_launch.restype = _I
     return lib
 
 
+def aggt_mode(F: int, element_size: int, data_ptr: int) -> int:
+    """The transpose kernel's path for rows of F elements at ``data_ptr``:
+    16 (the 16-byte kernel: F·size a multiple of 16 and the rows 16-byte
+    aligned), else 2 (column pairs: F even and pair-aligned), else 1
+    (single columns).  Every path sums the same f32 terms in the same
+    order, so all give the same bytes."""
+    if (F * element_size) % 16 == 0 and data_ptr % 16 == 0:
+        return 16
+    if F % 2 == 0 and data_ptr % (2 * element_size) == 0:
+        return 2
+    return 1
+
+
 def gather_aggregate_t_nf(d_out: torch.Tensor, indptr: torch.Tensor,
                           dst: torch.Tensor,
-                          deg: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          deg: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """The gradient (N, F) of `gather_aggregate_nf` with respect to its
     features, in d_out's dtype: row u sums d_out[i] (÷ deg[i] when ``deg``
     is given: the mean) over the destinations i of u's slice of the
     out-neighbour CSR (``indptr`` (N + 1,), ``dst`` (nnz,), int32), in f32
-    in that order, rounded once.  Contiguous tensors on one CUDA device."""
+    in that order, rounded once (on every path: `aggt_mode`).  Contiguous
+    tensors on one CUDA device."""
     if d_out.dim() != 2:
         raise ValueError(f"need d_out (N, F), got {tuple(d_out.shape)}")
     N, F = d_out.shape
     if max(N, F, dst.numel()) > INT32_MAX:
         raise ValueError(f"N, F and nnz must fit int32: {N}, {F}, "
                          f"{dst.numel()}")
-    align = d_out.element_size() * (2 if F % 2 == 0 else 1)
-    checks = [("d_out", d_out, DTYPES, (N, F), align),
-              ("indptr", indptr, (torch.int32,), (N + 1,), 4),
-              ("dst", dst, (torch.int32,), (dst.numel(),), 4)]
+    checks = [("d_out", d_out, DTYPES, (N, F)),
+              ("indptr", indptr, (torch.int32,), (N + 1,)),
+              ("dst", dst, (torch.int32,), (dst.numel(),))]
     if deg is not None:
-        checks.append(("deg", deg, (torch.int32,), (N,), 4))
-    for name, t, dtypes, shape, a in checks:
+        checks.append(("deg", deg, (torch.int32,), (N,)))
+    for name, t, dtypes, shape in checks:
         if (t.device != d_out.device or t.device.type != "cuda"
                 or t.dtype not in dtypes or not t.is_contiguous()
-                or tuple(t.shape) != shape or t.data_ptr() % a):
+                or tuple(t.shape) != shape):
             raise ValueError(
                 f"{name}: need a contiguous CUDA tensor of dtype "
-                f"{list(dtypes)} and shape {shape} on {d_out.device}, "
-                f"{a}-byte aligned; got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
+                f"{list(dtypes)} and shape {shape} on {d_out.device}; got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
     out = torch.empty_like(d_out)
     if out.numel() == 0:
         return out
+    mode = aggt_mode(F, d_out.element_size(), d_out.data_ptr())
     lib = _t_lib()
     dev = d_out.device
     with torch.cuda.device(dev):
@@ -121,7 +136,7 @@ def gather_aggregate_t_nf(d_out: torch.Tensor, indptr: torch.Tensor,
         err = lib.gather_aggregate_t_launch(
             d_out.data_ptr(), indptr.data_ptr(), dst.data_ptr(),
             None if deg is None else deg.data_ptr(), out.data_ptr(), N, F,
-            DTYPES[d_out.dtype], stream)
+            DTYPES[d_out.dtype], mode, stream)
     if err != 0:
         raise RuntimeError(f"gather_aggregate_t launch failed: CUDA error "
                            f"{err}")

@@ -524,10 +524,20 @@ def _same_bytes(name: str, a, b) -> None:
 
 
 # flash backward: FLASH_CASES' geometry plus the training shape of
-# qwen3-1.7b (B 1 of the trainer's 4; hd 128, GQA 16 / 8), ragged S with
-# GQA, window and softcap in both dtypes, non-causal and hd 16.
+# qwen3-1.7b (B 1 of the trainer's 4; hd 128, GQA 16 / 8) and its train_4k
+# length (S 4 096: 256 work items, more than the card holds at once, so the
+# ordered dQ adds run over many waves), ragged S with GQA, window and
+# softcap in both dtypes, non-causal and hd 16; at hd 128 S 1, 65 and 129
+# (one, two and three query tiles, the last one ragged) and G 4; at hd 64 a
+# window with softcap (both wgmma head dims).
 FLASH_BWD_CASES = [
     ("qwen3-1.7b-train", 1, 1024, 16, 8, 128, _BF16, True, None, None),
+    ("qwen3-1.7b-train4k", 1, 4096, 16, 8, 128, _BF16, True, None, None),
+    ("hd128-S1", 2, 1, 4, 2, 128, _BF16, True, None, None),
+    ("hd128-S65", 1, 65, 4, 2, 128, _BF16, True, None, None),
+    ("hd128-S129", 1, 129, 4, 2, 128, _BF16, True, None, None),
+    ("hd128-gqa4", 1, 700, 8, 2, 128, _BF16, True, None, None),
+    ("window100-softcap30-hd64", 2, 1000, 4, 2, 64, _BF16, True, 100, 30.0),
     ("ragged-gqa", 2, 1000, 4, 2, 64, _BF16, True, None, None),
     ("ragged-gqa-f32", 1, 333, 4, 2, 64, _F32, True, None, None),
     ("window512-softcap50", 1, 1100, 4, 2, 128, _BF16, True, 512, 50.0),
@@ -565,9 +575,20 @@ def flash_bwd_case(case, device, seed=0) -> float:
     leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     flash_attention_ref(*leaves, causal=causal, window=window,
                         softcap=softcap).backward(dout.float())
-    return max(grads_close(f"flash_attention_bwd {name} d{n}", g, t.grad,
-                           scaled=FLASH_BWD_TOL[dtype])
-               for n, g, t in zip("qkv", got, leaves))
+    tol = FLASH_BWD_TOL[dtype]
+    largest = max(float(t.grad.abs().max()) for t in leaves)
+    errs = []
+    for n, g, t in zip("qkv", got, leaves):
+        if float(t.grad.abs().max()) > 0:
+            errs.append(grads_close(f"flash_attention_bwd {name} d{n}", g,
+                                    t.grad, scaled=tol))
+        else:
+            # identically zero (every row attends to one key, S 1): dP and
+            # D agree only up to their rounding, so the kernel's dq and dk
+            # are held to the tolerance of the case's largest gradient
+            errs.append(grads_close(f"flash_attention_bwd {name} d{n}", g,
+                                    t.grad, atol=tol * largest))
+    return max(errs)
 
 
 # bag backward: (name, T, R, D, B, H, dtype, mean, weighted, over).  Few
@@ -621,15 +642,38 @@ def bag_bwd_case(case, device, seed=0) -> float:
 
 # aggregate transpose: AGG_CASES' geometry (ragged N, Dmax 1 / 15 / 40,
 # F 7, 8, 128, 602, a third of the rows all pad), and hub nodes: N 50 with
-# Dmax 40 names each node ~26 times
+# Dmax 40 names each node ~26 times.  Variants (a seventh field): "hub",
+# one node named by 5 000 rows among 8 192 nodes that mostly have no
+# out-edge (the sampled block's shape, one long sum); "offset1", d_out a
+# view one element off its 16-byte alignment, which takes a narrow path
+# (`kernel.aggt_mode`) and must give the 16-byte path's bytes.
 AGG_T_CASES = [
-    (f"N{N}-F{F}-D{Dm}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
-     N, F, Dm, dt, mean)
-    for dt in (_F32, _BF16) for mean in (False, True)
-    for N, F, Dm in ((1001, 128, 15), (1001, 602, 15), (203, 602, 1),
-                     (333, 7, 40), (50, 8, 40))
+    *[(f"N{N}-F{F}-D{Dm}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
+       N, F, Dm, dt, mean)
+      for dt in (_F32, _BF16) for mean in (False, True)
+      for N, F, Dm in ((1001, 128, 15), (1001, 602, 15), (203, 602, 1),
+                       (333, 7, 40), (50, 8, 40))],
+    ("hub5000-F128-bf16-mean", 8192, 128, 3, _BF16, True, "hub"),
+    ("hub5000-F128-f32-sum", 8192, 128, 3, _F32, False, "hub"),
+    ("offset1-F128-bf16-mean", 1001, 128, 15, _BF16, True, "offset1"),
+    ("offset1-F128-f32-sum", 1001, 128, 15, _F32, False, "offset1"),
 ]
 AGG_T_TOL = BAG_BWD_TOL
+AGG_T_HUB = 5000
+
+
+def agg_t_hub_inputs(N, F, Dmax, dtype, device, seed=0):
+    """features (N, F) N(0, 1); nbrs (N, Dmax): rows below `AGG_T_HUB`
+    name node 7 first, every 16th of them a random node or pad after it, the
+    other rows are all pad, so node 7 has 5 000 out-edges and most nodes
+    none."""
+    rng = np.random.default_rng(seed)
+    feats = torch.as_tensor(rng.normal(size=(N, F)), dtype=torch.float32)
+    nbrs = np.full((N, Dmax), -1, np.int32)
+    nbrs[:AGG_T_HUB, 0] = 7
+    some = np.arange(0, AGG_T_HUB, 16)
+    nbrs[some, 1:] = rng.integers(-1, N, (some.size, Dmax - 1))
+    return feats.to(device=device, dtype=dtype), torch.as_tensor(nbrs).to(device)
 
 
 def agg_t_case(case, device, seed=0) -> float:
@@ -639,8 +683,9 @@ def agg_t_case(case, device, seed=0) -> float:
     Returns the largest absolute difference."""
     from ..kernels.gather_aggregate.ops import GatherAggregate
 
-    name, N, F, Dmax, dtype, mean = case
-    feats, nbrs = agg_inputs(N, F, Dmax, dtype, device, seed)
+    name, N, F, Dmax, dtype, mean, *variant = case
+    make = agg_t_hub_inputs if variant == ["hub"] else agg_inputs
+    feats, nbrs = make(N, F, Dmax, dtype, device, seed)
     rng = np.random.default_rng(seed + 1)
     d_out = torch.as_tensor(rng.normal(size=(N, F)),
                             dtype=torch.float32).to(device=device, dtype=dtype)
@@ -652,6 +697,24 @@ def agg_t_case(case, device, seed=0) -> float:
 
     got = kernel_grad()
     _same_bytes(f"gather_aggregate_t {name}", [got], [kernel_grad()])
+    if variant == ["offset1"]:
+        from ..kernels.gather_aggregate.kernel import (
+            aggt_mode, gather_aggregate_t_nf,
+        )
+        from ..kernels.gather_aggregate.ops import out_neighbor_csr
+
+        store = torch.empty(N * F + 1, dtype=dtype, device=device)
+        view = store[1:].view(N, F)
+        view.copy_(d_out)
+        mode = aggt_mode(F, view.element_size(), view.data_ptr())
+        if mode == 16:
+            raise AssertionError(f"gather_aggregate_t {name}: the view off "
+                                 f"its alignment took the 16-byte path")
+        indptr, dst, deg = out_neighbor_csr(nbrs)
+        narrow = gather_aggregate_t_nf(view, indptr, dst,
+                                       deg if mean else None)
+        _same_bytes(f"gather_aggregate_t {name} (path {mode} against the "
+                    f"16-byte path)", [narrow], [got])
     f32 = feats.detach().float().requires_grad_()
     gather_aggregate_ref(f32, nbrs, mean=mean).backward(d_out.float())
     rtol, atol = AGG_T_TOL[dtype]
