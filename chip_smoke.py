@@ -156,7 +156,26 @@ line):
                backward held against autograd of the plain bag at the
                first batch's bags (f32 copies, a table at a time) and
                launched twice (identical bytes);
- 12. the kernels JSON line (all nine kernels; the backward kernels' and
+ 12. distributed — the distributed plane through the CLI under
+               ``torchrun --standalone`` (each rank `phase_dist_rank`:
+               launch counts zeroed before the CLI and read after it,
+               the plane's counters and its collectives' CUDA-event
+               span): main-distributed, mico x1.0 with phase 5's flags
+               under ``--metric mis_luby --execution distributed`` on one
+               NCCL rank, whose frequent set, supports and level counts
+               must equal the same flags under ``--execution batched``,
+               with no ``plane_fallback`` and frontier launches counted;
+               golden-distributed, the golden's flags under mis_luby
+               (`DIST_GOLDEN_FLAGS`) at world size 2 (two gloo ranks
+               with CUDA tensors on the one card: NCCL refuses two ranks
+               on one device) equal to world size 1 (NCCL) minus wall
+               clock and dispatches, then a world-size-2 session killed
+               after snapshot `DIST_KILL_AT` (a super-block cursor in
+               flight) and resumed at world size 1, equal to the
+               uninterrupted run.  One card shows no multi-card
+               behaviour: world size 2 checks the ranks' arithmetic and
+               the collectives' semantics, not their speed;
+ 13. the kernels JSON line (all nine kernels; the backward kernels' and
      AdamW's launches from the training phases), then the last line:
      {"ok": true, "device": {...}}.
 
@@ -1892,6 +1911,187 @@ def phase_train_resume_child() -> None:
         raise RuntimeError(f"train-resume exited {rc}")
 
 
+# the distributed phase (12): main-distributed runs mico x1.0 under
+# mis_luby on one NCCL rank beside the batched mis_luby run;
+# golden-distributed runs the golden's flags under mis_luby at world size 2
+# (gloo with CUDA tensors: NCCL refuses two ranks on one card) and 1.  Its
+# root blocks are cut to 64 vertices (10 blocks, against one at the
+# default width) so that both ranks match roots, and one super-block width
+# (2 blocks) fixes the schedule at both world sizes.
+DIST_GOLDEN_FLAGS = [f if f not in ("batched", "mis") else
+                     {"batched": "distributed", "mis": "mis_luby"}[f]
+                     for f in GOLDEN_FLAGS] + ["--root-block", "64",
+                                               "--blocks-per-super", "2"]
+DIST_KILL_AT = 3          # golden-distributed's session crashes here
+
+
+def _torchrun(tag: str, nproc: int, flags: list, *, env_extra=None,
+              timeout: int = 600) -> tuple:
+    """The mining CLI under ``torchrun --standalone`` in ``nproc`` ranks,
+    each through `phase_dist_rank`; returns (exit code, rank 0's record,
+    the ranks' and torchrun's output)."""
+    rec = OUT / f"dist_{tag}_rank0.json"
+    rec.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", str(Path(__file__).resolve()),
+           "--phase", "dist-rank", "--", *flags]
+    env = dict(os.environ, SMOKE_DIST_TAG=tag, **(env_extra or {}))
+    sys.stdout.flush()
+    # a session of its own, so that a timeout stops torchrun's ranks too
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    return (proc.returncode,
+            json.loads(rec.read_text()) if rec.exists() else None, out)
+
+
+def phase_dist_rank(flags: list) -> int:
+    """One torchrun rank: the mining CLI with its launch counts, the
+    distributed plane's counters and its collectives' device time (CUDA
+    events) written to ``build/smoke/dist_<tag>_rank<r>.json``."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mine as cli
+
+    _zero_counts()
+    D.reset_counters()
+    D.time_collectives(True)
+    t0 = time.monotonic()
+    rc = cli.main(flags)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    rank = int(os.environ.get("RANK", "0"))
+    (OUT / f"dist_{os.environ['SMOKE_DIST_TAG']}_rank{rank}.json").write_text(
+        json.dumps({"rank": rank, "rc": rc, "wall_s": wall,
+                    "launches": _mining_counts(),
+                    "counters": dict(D.COUNTERS),
+                    "collective_ms": D.collective_device_ms()}))
+    return rc
+
+
+def _no_dispatches(d: dict) -> dict:
+    d = _strip_resumed(d)
+    d.pop("dispatches")
+    for st in d["per_level"].values():
+        st.pop("dispatches")
+    return d
+
+
+def phase_distributed(out: Path, sigma: int) -> dict:
+    """12. main-distributed and golden-distributed (see the module doc)."""
+    import shutil
+
+    card = phase_card()
+    flags = [f if f != "mis" else "mis_luby"
+             for f in mico_flags(sigma, "batched")]
+    _zero_counts()
+    t0 = time.monotonic()
+    batched = _run_cli(flags, out / "smoke_mico_luby_batched.json")
+    torch.cuda.synchronize()
+    batched_wall = time.monotonic() - t0
+    batched_launches = _mining_counts()
+    flags[flags.index("batched")] = "distributed"
+    path = out / "smoke_mico_luby_distributed.json"
+    path.unlink(missing_ok=True)
+    rc, rank0, tail = _torchrun("main", 1, flags + ["--device", "cuda",
+                                                    "--json", str(path)])
+    if rc != 0 or rank0 is None:
+        raise AssertionError(f"main-distributed: torchrun exited {rc}:\n"
+                             f"{tail[-3000:]}")
+    got = json.loads(path.read_text())
+    c = rank0["counters"]
+    _log(f"main-distributed: mico x1.0 sigma={sigma} mis_luby, 1 NCCL rank "
+         f"({card}): wall_s={rank0['wall_s']:.2f} (CLI in the rank) "
+         f"elapsed_s={got['elapsed_s']:.2f}; batched mis_luby wall_s="
+         f"{batched_wall:.2f} elapsed_s={batched['elapsed_s']:.2f}; "
+         f"dispatches={c['dispatches']} luby_rounds={c['luby_rounds']} "
+         f"all_reduce calls={c['all_reduce']} bytes="
+         f"{c['all_reduce_bytes']} device_ms={rank0['collective_ms']:.3f}; "
+         f"launches={rank0['launches']} (batched {batched_launches}); "
+         f"levels_s={[round(st['wall_s'], 3) for st in got['per_level'].values()]}")
+    _same_frequent("main-distributed", got, batched)
+    if got["health"]["counts"].get("plane_fallback"):
+        raise AssertionError(f"main-distributed fell back to the batched "
+                             f"plane: {got['health']}")
+    if rank0["launches"]["frontier_expand"] <= 0 or c["all_reduce"] <= 0:
+        raise AssertionError(f"main-distributed: no frontier launch or no "
+                             f"collective: {rank0}")
+    _log("main-distributed: frequent set, supports and level counts == the "
+         "batched mis_luby run; no plane_fallback")
+
+    runs = {}
+    for ws, extra in ((2, ["--backend", "gloo"]), (1, [])):
+        path = out / f"smoke_golden_distributed_ws{ws}.json"
+        path.unlink(missing_ok=True)
+        rc, rank0, tail = _torchrun(
+            f"golden{ws}", ws, DIST_GOLDEN_FLAGS + extra + [
+                "--device", "cuda", "--json", str(path)], timeout=300)
+        if rc != 0 or rank0 is None:
+            raise AssertionError(f"golden-distributed at world size {ws}: "
+                                 f"torchrun exited {rc}:\n{tail[-3000:]}")
+        runs[ws] = json.loads(path.read_text())
+        c = rank0["counters"]
+        _log(f"golden-distributed: world size {ws} wall_s="
+             f"{rank0['wall_s']:.2f} n_frequent={runs[ws]['n_frequent']} "
+             f"dispatches={c['dispatches']} luby_rounds={c['luby_rounds']} "
+             f"all_reduce calls={c['all_reduce']} device_ms="
+             f"{rank0['collective_ms']:.3f} launches={rank0['launches']}")
+        if runs[ws]["health"]["events"] or rank0["launches"][
+                "frontier_expand"] <= 0:
+            raise AssertionError(f"golden-distributed at world size {ws}: "
+                                 f"{runs[ws]['health']} {rank0}")
+    if _no_dispatches(runs[2]) != _no_dispatches(runs[1]):
+        raise AssertionError("golden-distributed: world size 2 differs from "
+                             "world size 1")
+    _log("golden-distributed: world size 2 (gloo) == world size 1 (NCCL), "
+         "minus wall clock and dispatches")
+
+    ckpt_dir = out / "dist_kill"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    session = DIST_GOLDEN_FLAGS + ["--device", "cuda", "--checkpoint-dir",
+                                   str(ckpt_dir), "--checkpoint-every", "1"]
+    rc, _, tail = _torchrun(
+        "kill", 2, session + ["--backend", "gloo"], timeout=300,
+        env_extra={"REPRO_TORCH_FAULT_PLAN": json.dumps(
+            [{"point": "session.snapshot", "kind": "crash",
+              "at": DIST_KILL_AT}])})
+    if rc == 0 or "InjectedCrash" not in tail:
+        raise AssertionError(f"golden-distributed: the injected crash never "
+                             f"fired (exit {rc}):\n{tail[-3000:]}")
+    steps = sorted(ckpt_dir.glob("step_*/COMMIT"))
+    if not steps:
+        raise AssertionError("golden-distributed: no committed snapshot")
+    manifest = json.loads((steps[-1].parent / "manifest.json").read_text())
+    inflight = (manifest["extra"].get("level_cursor") or {}).get("inflight")
+    if not inflight or inflight["plane"] != "distributed":
+        raise AssertionError(f"golden-distributed: the last snapshot holds "
+                             f"no super-block cursor: {manifest['extra']['cursor']}")
+    path = out / "smoke_golden_distributed_resumed.json"
+    path.unlink(missing_ok=True)
+    rc, rank0, tail = _torchrun("resume", 1, session + [
+        "--resume", "--json", str(path)], timeout=300)
+    if rc != 0 or rank0 is None:
+        raise AssertionError(f"golden-distributed resume: torchrun exited "
+                             f"{rc}:\n{tail[-3000:]}")
+    resumed = json.loads(path.read_text())
+    _log(f"golden-distributed: killed at world size 2 after snapshot "
+         f"{DIST_KILL_AT}, resumed at world size 1 from "
+         f"{steps[-1].parent.name} (cursor {manifest['extra']['cursor']}, "
+         f"next block {inflight['next_block']}) in wall_s="
+         f"{rank0['wall_s']:.2f}, launches={rank0['launches']}")
+    if _no_dispatches(resumed) != _no_dispatches(runs[1]):
+        raise AssertionError("golden-distributed: the resumed --json differs "
+                             "from the uninterrupted run")
+    _log("golden-distributed: resumed --json == the uninterrupted run, minus "
+         "wall clock, health and dispatches")
+    return {"launches": rank0["launches"]}
+
+
 def phase_train_dlrm(dev) -> tuple:
     """dlrm-rm2 trained at full width: DLRM_TRAIN_STEPS train_batch steps of
     65 536; the loss on the first batch falls; then the bag backward at the
@@ -2175,9 +2375,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mico-sigma", type=int, default=MICO_SIGMA,
                     help="σ of the full-size mico run (phase 5)")
-    ap.add_argument("--phase", choices=["train-resume"],
+    ap.add_argument("--phase", choices=["train-resume", "distributed",
+                                        "dist-rank"],
                     help="run this phase alone (the smoke runs train-resume "
-                         "so, in a child process of its own)")
+                         "so, in a child process of its own, and each rank "
+                         "of the distributed phase as dist-rank, the CLI's "
+                         "flags after --)")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cli_flags = argv[argv.index("--") + 1:] if "--" in argv else []
+    argv = argv[:argv.index("--")] if "--" in argv else argv
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[smoke] no CUDA card (torch.cuda.is_available() is False)",
@@ -2188,6 +2394,13 @@ def main(argv=None) -> int:
     if args.phase == "train-resume":
         OUT.mkdir(parents=True, exist_ok=True)
         phase_train_resume(OUT)
+        return 0
+    if args.phase == "dist-rank":
+        return phase_dist_rank(cli_flags)
+    if args.phase == "distributed":
+        OUT.mkdir(parents=True, exist_ok=True)
+        phase_build()
+        phase_distributed(OUT, args.mico_sigma)
         return 0
 
     dev = torch.device("cuda")
@@ -2218,6 +2431,7 @@ def main(argv=None) -> int:
     lm_launches, flash_bwd, adamw = phase_train_lm(OUT, dev)
     phase_train_resume_child()
     bag_bwd_launches, bag_bwd = phase_train_dlrm(dev)
+    phase_distributed(OUT, args.mico_sigma)
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

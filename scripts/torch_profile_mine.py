@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python scripts/torch_profile_mine.py --dataset mico \\
         --scale 1.0 --sigma 784 --lam 0.0 --max-size 3 [--cap 131072] \\
-        [--execution batched|auto|sampled]
+        [--execution batched|auto|sampled|distributed] [--metric mis_luby]
 
 Runs ``repro_torch.core.mine`` once to warm up (kernel build, CUDA context),
 then once under ``torch.profiler`` (CPU + CUDA activities), and prints:
@@ -15,6 +15,14 @@ then once under ``torch.profiler`` (CPU + CUDA activities), and prints:
     so kernels do not overlap);
   * the card's name and power limit.
 
+``--execution distributed`` (metric ``mis_luby``) joins a process group of
+one NCCL rank (``tcp://localhost``, a free port) so that the plane's
+collectives run, and splits the device time into the frontier kernel, the
+collectives (NCCL kernels) and the rest (the Luby rounds' glue: scatter,
+gather, compare, scan), beside the host's waits on the card (CPU time in
+synchronizing calls: the per-round reads) and the plane's counters
+(dispatches, Luby rounds, all_reduce calls and bytes).
+
 ``--trace PATH`` also writes the chrome-format trace.  With
 ``--checkpoint-dir`` the profiled run is a fresh `MiningSession` into that
 directory (``--checkpoint-every`` snapshots), so the trace holds the copies
@@ -23,16 +31,19 @@ of the metric state to the host and the snapshots' host time.
 from __future__ import annotations
 
 import argparse
+import socket
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import MatchConfig, MiningConfig, mine
+from repro_torch.core import distributed as distributed_lib
 from repro_torch.core.flexis import initial_candidates
 from repro_torch.data.synthetic import PAPER_DATASETS, paper_dataset
 from repro_torch.kernels._build import kernel_source
@@ -50,9 +61,11 @@ def main(argv=None) -> int:
                     help="frontier capacity (131072: no level of the mico "
                          "x1.0 main cell overflows)")
     ap.add_argument("--execution", default="batched",
-                    choices=["batched", "auto", "sampled"],
+                    choices=["batched", "auto", "sampled", "distributed"],
                     help="the plane (auto and sampled at the built-in "
-                         "calibration and sample fraction)")
+                         "calibration and sample fraction; distributed on "
+                         "one NCCL rank, metric mis_luby)")
+    ap.add_argument("--metric", default="mis", choices=["mis", "mis_luby"])
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None, help="write the chrome trace here")
     ap.add_argument("--checkpoint-dir", default=None,
@@ -66,9 +79,18 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
 
+    if args.execution == "distributed":
+        args.metric = "mis_luby"
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
     g = paper_dataset(args.dataset, scale=args.scale)
     cfg = MiningConfig(
-        sigma=args.sigma, lam=args.lam, metric="mis", execution=args.execution,
+        sigma=args.sigma, lam=args.lam, metric=args.metric,
+        execution=args.execution,
         max_pattern_size=args.max_size,
         match=MatchConfig.for_graph(g, cap=args.cap))
     t0 = time.monotonic()
@@ -77,6 +99,7 @@ def main(argv=None) -> int:
 
     mine(g, cfg, device="cuda")                   # warm-up: build, context
     torch.cuda.synchronize()
+    distributed_lib.reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         if args.checkpoint_dir:
@@ -106,6 +129,22 @@ def main(argv=None) -> int:
     total_us = sum(r[0] for r in rows)
     print(f"device time {total_us / 1e6:.3f} s over {wall:.3f} s wall: busy "
           f"share {total_us / 1e6 / wall:.3f}")
+    if args.execution == "distributed":
+        frontier = sum(r[0] for r in rows
+                       if kernel_source(r[2]) == "frontier_expand")
+        nccl = sum(r[0] for r in rows if "nccl" in r[2].lower())
+        waits = sum(ev.self_cpu_time_total for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CPU and ev.key in (
+                        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaMemcpyAsync", "cudaEventSynchronize"))
+        c = distributed_lib.COUNTERS
+        print(f"distributed: frontier kernel {frontier / 1e6:.3f} s, "
+              f"collectives (NCCL kernels) {nccl / 1e6:.3f} s, Luby glue "
+              f"and the rest {(total_us - frontier - nccl) / 1e6:.3f} s of "
+              f"device time; host waits on the card {waits / 1e6:.3f} s; "
+              f"dispatches {c['dispatches']}, Luby rounds "
+              f"{c['luby_rounds']}, all_reduce {c['all_reduce']} calls of "
+              f"{c['all_reduce_bytes']} bytes")
     for dev_us, count, key in rows[:args.top]:
         print(f"  {dev_us / 1e3:10.1f} ms  {count:7d}x  {key[:90]}")
     # a port kernel may be several CUDA kernels (the frontier's passes):
@@ -117,6 +156,8 @@ def main(argv=None) -> int:
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

@@ -6,9 +6,10 @@ planner (`core/planner.py`, ``execution="auto"``) picks each level's plane
 and geometry — the *batched* executor (`core/batched.py`: every same-k
 candidate group of a level runs as one step per root block with per-pattern
 τ masking), the paper's one-pattern-at-a-time loop (``"sequential"``,
-`evaluate_pattern`, kept as the oracle) or the *sampled* plane
-(`core/sampled.py`).  ``mine`` runs on ``device="cuda"`` unless the caller
-asks for the CPU.
+`evaluate_pattern`, kept as the oracle), the *sampled* plane
+(`core/sampled.py`) or the *distributed* plane (`core/distributed.py`:
+roots sharded over the ranks of a ``torch.distributed`` process group).
+``mine`` runs on ``device="cuda"`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -31,9 +32,9 @@ from .planner import CostModel, ExecutionPlanner, LevelPlan
 from . import planner as planner_lib
 from . import batched as batched_lib
 from . import sampled as sampled_lib
+from . import distributed as distributed_lib
 from . import mis as mis_lib
 from . import metrics as metrics_lib
-from ..device import resolve_device
 
 __all__ = ["MiningConfig", "MiningLoopState", "PatternStats", "MiningResult",
            "tau_threshold", "mine", "evaluate_pattern", "initial_candidates"]
@@ -60,8 +61,9 @@ class MiningConfig:
     # recorded in per_level["plan"]; "batched" stacks each same-k candidate
     # group of a level into one vmapped device program; "sequential" is the
     # paper's one-pattern-at-a-time loop, kept as the equivalence oracle;
-    # "distributed" shards match roots over every local device (shard_map,
-    # `core/distributed.py`) — Luby semantics, so metric must be mis_luby.
+    # "distributed" shards match roots over the ranks of the process group
+    # (`core/distributed.py`; a mesh of one without a group) — Luby
+    # semantics, so metric must be mis_luby.
     # (mis_exact always takes the sequential path — its MIS solve is
     # host-side, though its embedding collection is block-batched.)
     # "sampled" (`core/sampled.py`) runs a weighted root-block sample per
@@ -69,7 +71,7 @@ class MiningConfig:
     # pattern whose confidence interval reaches τ to the exact batched
     # plane — the frequent set and its supports stay bit-identical to
     # forced batched while clearly-infrequent patterns are priced at the
-    # sample fraction.  ("distributed" is not ported yet and raises.)
+    # sample fraction.
     execution: str = "auto"
     # ceiling on the pattern axis of one batched program (transient device
     # memory is O(batch · cap · chunk); bigger levels are sliced)
@@ -77,7 +79,7 @@ class MiningConfig:
     # distributed plane only: logical super-block width in root blocks —
     # fixes the early-exit/accounting schedule independent of the mesh
     # shape, which is what lets a checkpointed run resume on a different
-    # device count bit-identically.  None = current device count (legacy).
+    # world size bit-identically.  None = the current world size (legacy).
     # (Under execution="auto" the planner only *considers* the distributed
     # plane when this is set — an unpinned schedule is mesh-dependent.)
     blocks_per_super: Optional[int] = None
@@ -355,18 +357,23 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
     asking for CUDA without a card raises).  ``cfg.execution`` is ``"auto"``
     (the planner picks each level's plane and geometry from the cost model
     that `planner.load_calibration(calibration)` loads), ``"batched"``,
-    ``"sequential"`` or ``"sampled"``; ``"distributed"`` raises
-    ``NotImplementedError`` until it is ported.
+    ``"sequential"``, ``"sampled"`` or ``"distributed"``.  With an
+    initialized ``torch.distributed`` group every rank calls ``mine`` with
+    the same arguments (`distributed.mining_mesh`: NCCL puts rank r on
+    ``cuda:LOCAL_RANK``); the distributed plane shards each level's roots
+    over the ranks and every rank returns the same result.
 
     ``health`` is the run's `RunHealth` (a fresh one when omitted).  Patterns
     that overflow an auto-derived (or within-level replanned) cap are re-run
     at the base cap (``overflow_escalation``), which restores forced-plane
-    equality.
+    equality; a distributed level that fails is re-run on the batched plane
+    (``plane_fallback``: supports are plane-invariant).
 
     ``hooks`` is a session runtime's resume surface (duck-typed):
     ``loop_resume()`` → Optional[`MiningLoopState`]; ``level_hooks(level)``
-    → per-level hooks for the level executors (`batched.evaluate_level_batched`
-    and `sampled.evaluate_level_sampled` document them), with optional
+    → per-level hooks for the level executors (`batched.evaluate_level_batched`,
+    `sampled.evaluate_level_sampled` and
+    `distributed.evaluate_level_distributed` document them), with optional
     ``resume_plan()`` / ``record_plan(dict)``; ``on_level_end(state)`` at
     every level boundary; optional ``pin_calibration(dict) -> dict``.  A run
     resumed from any snapshot gives the uninterrupted run's result except
@@ -376,14 +383,18 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
     if health is None:
         health = RunHealth()
     cost = planner_lib.load_calibration(calibration)
-    n_devices = 1
+    mesh = distributed_lib.mining_mesh(device)
+    n_devices = mesh.world_size
     if hooks is not None and hasattr(hooks, "pin_calibration"):
-        # a session pins the planner inputs so a resume replans identically
+        # a session pins the planner inputs so a resume replans identically,
+        # also at another world size (CostModel.from_dict ignores the extra
+        # n_devices key)
         pinned = hooks.pin_calibration(
             {**cost.to_dict(), "n_devices": n_devices})
         cost = CostModel.from_dict(pinned)
+        n_devices = int(pinned.get("n_devices", n_devices))
     planner = ExecutionPlanner(g, cfg, cost_model=cost, n_devices=n_devices)
-    dev_g = DeviceGraph.from_host(g, resolve_device(device))
+    dev_g = DeviceGraph.from_host(g, mesh.device)
     graph_bytes = g.nbytes()
 
     resume = hooks.loop_resume() if hooks is not None else None
@@ -466,7 +477,7 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
         plane = plan.plane if cfg.metric != "mis_exact" else "sequential"
 
         tel = None
-        if plane in ("batched", "sampled") and eval_pats:
+        if plane in ("batched", "distributed", "sampled") and eval_pats:
             if plane == "sampled":
                 outcomes, lvl_timed_out, tel = sampled_lib.evaluate_level_sampled(
                     g, dev_g, eval_pats, eval_taus, cfg.metric, plan.match,
@@ -475,6 +486,48 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
                     deadline=deadline, max_batch=plan.max_batch,
                     hooks=level_hooks, block_order=block_order,
                     sample_rounds=cfg.sample_rounds)
+            elif plane == "distributed":
+                try:
+                    outcomes, lvl_timed_out, tel = \
+                        distributed_lib.evaluate_level_distributed(
+                            g, eval_pats, eval_taus, plan.match, mesh=mesh,
+                            dev_g=dev_g, complete=cfg.complete,
+                            deadline=deadline, max_batch=plan.max_batch,
+                            blocks_per_super=cfg.blocks_per_super,
+                            hooks=level_hooks, block_order=block_order)
+                except Exception as e:
+                    # a failed collective — or a mesh that can no longer
+                    # satisfy the recorded plan — must not fail the query:
+                    # re-run the level on the batched plane (supports are
+                    # plane-invariant).  Completed groups are replayed;
+                    # only the in-flight super-block cursor is dropped.
+                    # `InjectedCrash` and `PreemptedError` are
+                    # BaseExceptions and fly past this: a kill is not a
+                    # mesh failure.
+                    health.record(
+                        "plane_fallback",
+                        f"distributed level failed "
+                        f"({type(e).__name__}: {e}); degrading to batched",
+                        level=level)
+                    if level_hooks is not None:
+                        drop = getattr(level_hooks, "drop_inflight", None)
+                        if drop is not None:
+                            drop()
+                    plan = dataclasses.replace(plan, plane="batched")
+                    if level_hooks is not None:
+                        record_plan = getattr(level_hooks, "record_plan",
+                                              None)
+                        if record_plan is not None:
+                            # a snapshot after this point resumes on the
+                            # batched plane, whatever the plan said
+                            record_plan(plan.to_dict())
+                    plane = "batched"
+                    outcomes, lvl_timed_out, tel = \
+                        batched_lib.evaluate_level_batched(
+                            g, dev_g, eval_pats, eval_taus, cfg.metric,
+                            plan.match, complete=cfg.complete,
+                            deadline=deadline, max_batch=plan.max_batch,
+                            hooks=level_hooks, block_order=block_order)
             else:
                 # within-level replanning is an auto-plane behaviour: the
                 # forced batched plane keeps the config geometry verbatim
@@ -608,6 +661,10 @@ def mine(g: DataGraph, cfg: MiningConfig, *, device="cuda", hooks=None,
                     int(x) for x in tel.block_peaks]
         if cfg.execution == "auto" and tel is not None:
             per_level[level]["replans"] = int(tel.replans)
+        if mesh.world_size > 1:
+            # every rank runs this loop: a rank alone past the deadline
+            # would leave the others waiting in the next collective
+            timed_out = mesh.any(timed_out)
         if timed_out or not level_frequent:
             cp = []
         elif (cfg.generation == "merge"

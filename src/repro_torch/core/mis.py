@@ -12,7 +12,9 @@ each returns *some* valid independent set of size τ (the paper's contract,
     on the card.
   * ``mis_luby_update`` — parallel rounds: an embedding is accepted in a
     round iff its priority (row index) is the minimum over every data vertex
-    it touches (one ``scatter_reduce(..., "amin")`` per round).
+    it touches (one ``scatter_reduce(..., "amin")`` per round), every
+    pattern of a bucket in the same rounds (`luby_rounds`, which the
+    distributed plane runs over a process group).
 
 Bitmaps are int32 words, ``(P, ⌈n/32⌉)`` with a leading pattern axis: torch
 on the CPU has no uint32 shift, ``index_add_`` or ``index_put_``, so the
@@ -26,12 +28,14 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "bitmap_words",
     "bitmap_init",
     "mis_greedy_update",
     "mis_luby_update",
+    "luby_rounds",
     "touches_used",
 ]
 
@@ -95,31 +99,91 @@ def mis_greedy_update(bitmap: torch.Tensor, count: torch.Tensor,
             torch.tensor(counts, dtype=torch.int32, device=count.device))
 
 
-def _luby_one(bm, cnt, emb, n_valid, tau, k, n):
-    cap = emb.shape[0]
+class _OneRank:
+    """The mesh of `luby_rounds` without a process group: rank 0 of 1, no
+    collective."""
+
+    rank = 0
+    world_size = 1
+
+    @staticmethod
+    def all_reduce(t, op):
+        return t
+
+
+def luby_rounds(bitmaps: torch.Tensor, counts: torch.Tensor,
+                emb: torch.Tensor, n_valid: torch.Tensor, taus: torch.Tensor,
+                k: int, n: int, cap: int, mesh=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Luby rounds for a bucket of P patterns, one set of ops a round.
+
+    bitmaps (P, ⌈n/32⌉) int32, counts and taus (P,) int32; emb (P, cap, K)
+    and n_valid (P,) are this rank's rows.  A row's priority is
+    ``rank · cap + row`` (``INF = world_size · cap``); a round's winners
+    hold the minimum priority on all k of their vertices.  ``mesh`` (an
+    object with ``rank``, ``world_size`` and ``all_reduce(t, op)``; None =
+    one rank) makes the rounds global (`core/distributed.py`): bitmaps and
+    counts are replicated, the per-vertex minimum, the ranks' win counts,
+    the bitmap addends and the alive flags are reduced over it.  A pattern
+    with count ≥ τ or no alive row anywhere gets no winner, so a round
+    leaves it as it is.  Returns new (bitmaps, counts, rounds); the inputs
+    are not modified.
+    """
+    mesh = _OneRank if mesh is None else mesh
+    P = emb.shape[0]
     dev = emb.device
-    rowid = torch.arange(cap, dtype=torch.int32, device=dev)
-    vs = emb[:, :k].clamp(min=0)
-    valid = rowid < n_valid
-    alive = valid & ~touches_used(bm, vs)
-    flat_vs = vs.reshape(-1).long()
-    words = (vs >> 5).reshape(-1).long()
+    rank, ndev = mesh.rank, mesh.world_size
+    INF = ndev * cap
+    # rows past every pattern's n_valid are never alive: drop them (the
+    # priorities keep the cap's row numbering)
+    rows = max(min(int(n_valid.max()) if P else 0, cap), 0)
+    rowid = torch.arange(rows, dtype=torch.int32, device=dev)
+    prio_row = rank * cap + rowid
+    vs = emb[:, :rows, :k].clamp(min=0)                        # (P, R, k)
+    flat = vs.reshape(P, -1).long()
+    words = (vs >> 5).reshape(P, -1).long()
     bits = _bits(vs)
-    while bool(alive.any()) and cnt < tau:
-        prio = torch.where(alive, rowid, torch.full_like(rowid, cap))
-        vmin = torch.full((n,), cap, dtype=torch.int32, device=dev)
-        vmin = vmin.scatter_reduce(0, flat_vs, prio[:, None].expand(-1, k)
-                                   .reshape(-1), "amin")
-        win = alive & (vmin[vs.long()] == prio[:, None]).all(1)
-        # enforce τ in priority order: only the lowest (τ − cnt) winners count
-        win_rank = win.cumsum(0) - 1
-        win &= win_rank < (tau - cnt)
+    zero_bits = torch.zeros_like(bits)
+    alive = rowid[None] < n_valid[:, None]
+
+    def touches(bm):
+        return ((bm.gather(1, words).view(P, rows, k) & bits) != 0).any(-1)
+
+    bm, cnt = bitmaps, counts
+    alive &= ~touches(bm)
+    n_rounds = 0
+    while True:
+        flags = alive.any(1).to(torch.int32)
+        mesh.all_reduce(flags, dist.ReduceOp.MAX)
+        if not bool(((flags > 0) & (cnt < taus)).any()):
+            break
+        n_rounds += 1
+        prio = torch.where(alive, prio_row[None], INF)          # (P, R)
+        vmin = torch.full((P, n), INF, dtype=torch.int32, device=dev)
+        vmin.scatter_reduce_(1, flat, prio[:, :, None].expand(P, rows, k)
+                             .reshape(P, -1), "amin")
+        mesh.all_reduce(vmin, dist.ReduceOp.MIN)
+        win = alive & (vmin.gather(1, flat).view(P, rows, k)
+                       == prio[:, :, None]).all(-1)
+        # the τ cut in priority order: the lower ranks' wins come first
+        wins = torch.zeros((P, ndev), dtype=torch.int32, device=dev)
+        wins[:, rank] = win.sum(1, dtype=torch.int32)
+        mesh.all_reduce(wins, dist.ReduceOp.SUM)
+        room = taus - cnt
+        prefix = wins[:, :rank].sum(1, dtype=torch.int32)
+        win_rank = prefix[:, None] + win.cumsum(1, dtype=torch.int32) - 1
+        win &= win_rank < room[:, None]
         # winners hold disjoint, unmarked vertices: adding their bits is OR
-        add = torch.where(win[:, None], bits, torch.zeros_like(bits))
-        bm = bm.index_add(0, words, add.reshape(-1))
-        cnt += int(win.sum())
-        alive = alive & ~win & ~touches_used(bm, vs)
-    return bm, cnt
+        addend = torch.zeros_like(bm)
+        addend.scatter_add_(1, words, torch.where(win[:, :, None], bits,
+                                                  zero_bits).reshape(P, -1))
+        mesh.all_reduce(addend, dist.ReduceOp.SUM)
+        bm = bm + addend
+        # the winners' global ranks are contiguous: min(Σ wins, room) count
+        cnt = cnt + torch.minimum(wins.sum(1, dtype=torch.int32),
+                                  room).clamp(min=0)
+        alive &= ~win & ~touches(bm)
+    return bm, cnt, n_rounds
 
 
 def mis_luby_update(bitmap: torch.Tensor, count: torch.Tensor,
@@ -129,20 +193,14 @@ def mis_luby_update(bitmap: torch.Tensor, count: torch.Tensor,
     """Parallel-rounds mIS (priority = row index). Same set as greedy at τ = ∞.
 
     Each round: per-data-vertex min of alive embedding priorities
-    (``scatter_reduce`` amin into a dense (n,) array), then an embedding
+    (``scatter_reduce`` amin into a dense (P, n) array), then an embedding
     wins iff it holds the min on all k of its vertices.  Winners' vertices
     are retired into the bitmap.  The τ cut keeps the lowest-priority
     winners of the final round, so exactly τ embeddings are counted.
-    Shapes as `mis_greedy_update`; patterns run one after another.
+    Shapes as `mis_greedy_update`; every pattern of the bucket runs in the
+    same rounds (`luby_rounds` on one rank).
     """
-    P = emb.shape[0]
-    nv = n_valid.cpu().tolist()
-    taus = tau.cpu().tolist()
-    counts = count.cpu().tolist()
-    bms = []
-    for p in range(P):
-        bm, counts[p] = _luby_one(bitmap[p], counts[p], emb[p], nv[p],
-                                  taus[p], k, n)
-        bms.append(bm)
-    return (torch.stack(bms),
-            torch.tensor(counts, dtype=torch.int32, device=count.device))
+    bm, cnt, _ = luby_rounds(bitmap, count.to(torch.int32), emb,
+                             n_valid.to(torch.int32), tau.to(torch.int32),
+                             k, n, emb.shape[1])
+    return bm, cnt

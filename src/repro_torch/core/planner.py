@@ -7,7 +7,9 @@ Every mining level asks the same three questions:
      single pattern's block already fills the card it is parity-or-slower
      than the sequential oracle.  The sampled plane (`core/sampled.py`)
      runs a weighted sample of root blocks and escalates what it cannot
-     settle to the exact batched plane.
+     settle to the exact batched plane.  The distributed plane
+     (`core/distributed.py`) adds the process group's ranks, at
+     collective-latency cost.
   2. **How wide a pattern bucket?**  Bigger buckets amortize more overhead
      but multiply transient device memory.
   3. **What matcher geometry?**  `MatchConfig.for_graph` is one graph-global
@@ -61,7 +63,7 @@ from .matcher import MatchConfig
 __all__ = [
     "CostModel", "LevelPlan", "ExecutionPlanner", "block_degree_stat",
     "root_block_order", "DEFAULT_CALIBRATION_FILE", "CALIBRATION_ENV",
-    "load_calibration", "persist_escalation_fraction", "UNPORTED_PLANES",
+    "load_calibration", "persist_escalation_fraction",
 ]
 
 # the port's calibration file (cwd-relative; override with the env var).
@@ -86,12 +88,6 @@ MIN_SAMPLED_BLOCKS = 2
 # auto picks the sampled plane only when its priced cost undercuts the
 # batched row by this factor
 SAMPLED_MARGIN = 0.9
-
-# planes of the reference that need modules this port does not have yet
-UNPORTED_PLANES = {
-    "distributed": "ROADMAP Queue 1 item 3 (core/distributed.py)",
-}
-
 
 def hidden_mass_bound(confidence: float, f_cov: float) -> float:
     """Max support the unsampled blocks can hide at the CI confidence.
@@ -392,17 +388,14 @@ class ExecutionPlanner:
 
     Forced execution modes pass through unchanged; ``"auto"`` applies the
     cost model; ``"sampled"`` draws the level's block sample.  Pure host
-    arithmetic, deterministic given (graph, config, cost model).  The port
-    runs on one card (``n_devices`` 1): ``"distributed"`` is not ported.
+    arithmetic, deterministic given (graph, config, cost model).
+    ``n_devices`` is the world size the distributed plane would shard
+    roots over.
     """
 
     def __init__(self, g: DataGraph, cfg, *,
                  cost_model: Optional[CostModel] = None,
                  n_devices: int = 1):
-        if cfg.execution in UNPORTED_PLANES:
-            raise NotImplementedError(
-                f"execution={cfg.execution!r} is not ported yet: "
-                f"{UNPORTED_PLANES[cfg.execution]}")
         self.g = g
         self.cfg = cfg
         self.cost = cost_model or load_calibration()
@@ -452,7 +445,13 @@ class ExecutionPlanner:
                 bat += self.cost.block_step_s(match, k,
                                               _pow2_ceil(bucket_n),
                                               batched=True, metric=metric)
-        return {"sequential": seq, "batched": bat}
+        costs = {"sequential": seq, "batched": bat}
+        if self.n_devices > 1:
+            # roots shard over the mesh: ndev blocks advance per step, at
+            # one extra dispatch-overhead's worth of collective latency
+            costs["distributed"] = (bat + self.cost.dispatch_overhead_s
+                                    ) / self.n_devices
+        return costs
 
     # -- the decision -------------------------------------------------------
     def plan_level(self, level: int, patterns: Sequence, taus: Sequence[int],
@@ -462,7 +461,8 @@ class ExecutionPlanner:
         Forced modes return the config's plane/geometry verbatim;
         ``"sampled"`` draws the level's sample; ``"auto"`` derives geometry
         from ``prev``, sizes the bucket, picks the cheaper of sequential and
-        batched, and prices a sampled pass where batched wins.
+        batched — or distributed, where it is eligible and cheaper — and
+        prices a sampled pass where batched wins.
         """
         cfg = self.cfg
         if cfg.execution == "sampled":
@@ -489,6 +489,15 @@ class ExecutionPlanner:
 
         plane = "sequential" if costs["sequential"] <= costs["batched"] \
             else "batched"
+        # the distributed plane needs Luby semantics and a pinned,
+        # mesh-invariant super-block schedule (else auto would change the
+        # accounting granularity), and enough blocks to feed every rank
+        if ("distributed" in costs
+                and cfg.metric == "mis_luby"
+                and cfg.blocks_per_super is not None
+                and self.n_blocks >= 2 * self.n_devices
+                and costs["distributed"] < costs[plane]):
+            plane = "distributed"
         if plane == "batched":
             sample, pricing = self._price_sampled(
                 level, taus, prev, match,

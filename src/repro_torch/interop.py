@@ -11,6 +11,10 @@ compares the port's outputs through them, one function per state type:
     reference's ``(⌈n/32⌉,)`` uint32 words ↔ the port's int32 words, the
     same bits;
   * MNI / frac tables — `table_from_numpy` / `table_to_numpy`;
+  * the distributed plane's carried state —
+    `super_block_state_from_numpy` / `super_block_state_to_numpy`: the
+    reference's ``SuperBlockState`` ↔ the port's, the words viewed as
+    uint32;
   * transformer weights — `transformer_params_from_numpy` builds the port's
     model from the reference's parameter pytree, and
     `transformer_config_from` its config from the reference's;
@@ -30,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.distributed import SuperBlockState
 from .core.graph import DataGraph
 from .core.plan import _TENSOR_FIELDS, PatternPlan, plan_from_numpy
 from .models.common import for_serving
@@ -41,7 +46,8 @@ from .train.optimizer import AdamWState
 
 __all__ = ["data_graph_from_arrays", "plan_from_numpy", "plan_from_fields",
            "bitmap_from_uint32", "bitmap_to_uint32", "table_from_numpy",
-           "table_to_numpy", "transformer_config_from",
+           "table_to_numpy", "super_block_state_from_numpy",
+           "super_block_state_to_numpy", "transformer_config_from",
            "transformer_params_from_numpy", "dlrm_params_from_numpy",
            "sage_params_from_numpy", "graph_batch_from_numpy",
            "param_entries", "params_to_numpy", "adamw_state_from_numpy",
@@ -78,6 +84,33 @@ def bitmap_from_uint32(words, device="cpu") -> torch.Tensor:
 def bitmap_to_uint32(t: torch.Tensor) -> np.ndarray:
     """int32 bitmap tensor → uint32 numpy words, same bits."""
     return t.detach().cpu().numpy().astype(np.int32).view(np.uint32)
+
+
+_SUPER_HOST_FIELDS = ("next_block", "found", "overflowed", "blocks_run",
+                      "super_blocks_run", "dispatches", "max_count")
+
+
+def super_block_state_from_numpy(ss, device="cpu") -> SuperBlockState:
+    """The port's `SuperBlockState` from any object with the reference's
+    fields (its bitmaps uint32 words, its counts int32)."""
+    host = {f: getattr(ss, f) for f in _SUPER_HOST_FIELDS}
+    for f in ("found", "overflowed", "blocks_run", "max_count"):
+        if host[f] is not None:
+            host[f] = np.array(host[f])
+    return SuperBlockState(
+        bitmaps=bitmap_from_uint32(ss.bitmaps, device),
+        counts=torch.as_tensor(np.asarray(ss.counts, np.int32)).to(device),
+        **host)
+
+
+def super_block_state_to_numpy(ss: SuperBlockState) -> dict:
+    """The reference's ``SuperBlockState`` fields of a port state (numpy;
+    ``SuperBlockState(**super_block_state_to_numpy(ss))`` on the
+    reference's side)."""
+    out = {f: getattr(ss, f) for f in _SUPER_HOST_FIELDS}
+    out["bitmaps"] = bitmap_to_uint32(torch.as_tensor(ss.bitmaps))
+    out["counts"] = torch.as_tensor(ss.counts).cpu().numpy().astype(np.int32)
+    return out
 
 
 def table_from_numpy(a, device="cpu") -> torch.Tensor:

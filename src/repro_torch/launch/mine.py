@@ -24,18 +24,35 @@ SIGINT stops the run at its next snapshot with exit code 75
 (`EXIT_PREEMPTED`), and rerunning the same command line (``--resume``
 makes a missing snapshot an error) continues it to the uninterrupted
 run's result.
+
+``--execution distributed`` (metric ``mis_luby``, forced) shards each
+level's root blocks over the ranks of a ``torch.distributed`` group.  Under
+``torchrun`` the CLI reads ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``,
+joins the group — NCCL for ``--device cuda`` (rank r on ``cuda:LOCAL_RANK``),
+gloo for ``--device cpu``; ``--backend gloo`` also reduces CUDA tensors,
+so several ranks can share one card — and leaves it at exit; rank 0 alone
+prints, writes ``--json``, the calibration file and the checkpoints.
+Without torchrun's environment it mines on a mesh of one::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.mine \
+        --device cpu --execution distributed --dataset gnutella --scale 0.01
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import signal
 import sys
 import time
 from typing import Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.core import MatchConfig, MiningConfig, mine
+from repro_torch.core.distributed import process_rank
 from repro_torch.core.flexis import tau_threshold
 from repro_torch.core.planner import persist_escalation_fraction
 from repro_torch.data.synthetic import PAPER_DATASETS, paper_dataset
@@ -61,12 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--generation", default="merge",
                     choices=["merge", "edge_ext"])
     ap.add_argument("--execution", default="auto",
-                    choices=["auto", "batched", "sequential", "sampled"],
+                    choices=["auto", "batched", "sequential", "distributed",
+                             "sampled"],
                     help="data plane: the cost-model planner picks per level "
                          "(auto, default; decisions recorded in per_level "
                          "and --json), one batched step per same-k "
                          "candidate group and root block (batched), the "
-                         "paper's per-pattern loop (sequential oracle), or "
+                         "paper's per-pattern loop (sequential oracle), "
+                         "root blocks sharded over the torchrun ranks "
+                         "(distributed; forces metric=mis_luby), or "
                          "a weighted root-block sample with exact "
                          "escalation (sampled; a pattern is pruned only "
                          "when its confidence interval lies below tau, "
@@ -75,6 +95,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to mine: the card with the CUDA kernels "
                          "(default) or the CPU with their plain versions")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "nccl", "gloo"],
+                    help="torch.distributed backend under torchrun: nccl "
+                         "for --device cuda and gloo for --device cpu "
+                         "(auto), or gloo on the card too (several ranks "
+                         "on one card)")
+    ap.add_argument("--blocks-per-super", type=int, default=None,
+                    help="distributed plane: logical super-block width in "
+                         "root blocks (default: the world size; sessions "
+                         "pin 8) — runs with one width agree field for "
+                         "field at any world size but for dispatches")
     ap.add_argument("--sample-fraction", type=float, default=0.25,
                     help="sampled plane: target fraction of root blocks "
                          "drawn per level (1.0 degenerates to the exact "
@@ -116,14 +147,40 @@ def build_parser() -> argparse.ArgumentParser:
                          "manifest/COMMIT protocol, see repro_torch.runtime)")
     ap.add_argument("--checkpoint-every", type=int, default=1,
                     help="snapshot cadence in carried-state updates (root "
-                         "blocks on the batched plane, sample groups on the "
-                         "sampled plane); 0 = level boundaries only")
+                         "blocks on the batched plane, super-blocks on the "
+                         "distributed plane, sample groups on the sampled "
+                         "plane); 0 = level boundaries only")
     ap.add_argument("--resume", action="store_true",
                     help="require a committed snapshot in --checkpoint-dir "
                          "and continue it (without this flag a snapshot is "
                          "still picked up when present; --resume makes a "
                          "missing one an error instead of a fresh start)")
     return ap
+
+
+def _say(*args, **kw) -> None:
+    """print on rank 0 (every process without a group)."""
+    if process_rank() == 0:
+        print(*args, **kw)
+
+
+def _join_group(args, device: torch.device) -> bool:
+    """Join torchrun's process group when its environment is set; False
+    without it (a mesh of one)."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False
+    backend = args.backend
+    if backend == "auto":
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend == "nccl" and device.type != "cuda":
+        raise SystemExit("--backend nccl needs --device cuda")
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return True
 
 
 def result_json(args, res) -> dict:
@@ -169,8 +226,8 @@ class _Preemption:
             signal.signal(s, h)
 
     def _on_signal(self, signum, frame) -> None:
-        print(f"[mine] caught signal {signum}: finishing the current "
-              f"snapshot, then exiting resumable", flush=True)
+        _say(f"[mine] caught signal {signum}: finishing the current "
+             f"snapshot, then exiting resumable", flush=True)
         self.requested = True
         if self.session is not None:
             self.session.request_preempt()
@@ -199,10 +256,10 @@ def _run_session(args, g, cfg, device, preemption: _Preemption):
         res = session.run()
     except PreemptedError as e:
         ckpt.wait_pending(raise_errors=False)  # flush async writes
-        print(f"[mine] preempted: {e}")
+        _say(f"[mine] preempted: {e}")
         res = None
-    print(f"[mine] session: {session.snapshots_written} snapshots "
-          f"written under {args.checkpoint_dir}")
+    _say(f"[mine] session: {session.snapshots_written} snapshots "
+         f"written under {args.checkpoint_dir}")
     return res
 
 
@@ -212,17 +269,26 @@ def main(argv=None) -> int:
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     device = resolve_device(args.device)
-    if not args.checkpoint_dir:
-        return _mine(args, device, None)
-    with _Preemption() as preemption:
-        return _mine(args, device, preemption)
+    joined = _join_group(args, device)
+    try:
+        if args.execution == "distributed" and args.metric != "mis_luby":
+            _say(f"[mine] execution=distributed forces metric=mis_luby "
+                f"(was {args.metric})")
+            args.metric = "mis_luby"
+        if not args.checkpoint_dir:
+            return _mine(args, device, None)
+        with _Preemption() as preemption:
+            return _mine(args, device, preemption)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def _mine(args, device, preemption: Optional[_Preemption]) -> int:
     t0 = time.monotonic()
     g = paper_dataset(args.dataset, scale=args.scale, seed=args.seed)
-    print(f"[mine] {args.dataset}×{args.scale}: |V|={g.n} |E|={g.n_edges} "
-          f"labels={g.n_labels} (load {time.monotonic() - t0:.1f}s)")
+    _say(f"[mine] {args.dataset}×{args.scale}: |V|={g.n} |E|={g.n_edges} "
+         f"labels={g.n_labels} (load {time.monotonic() - t0:.1f}s)")
 
     cfg = MiningConfig(
         sigma=args.sigma, lam=args.lam, metric=args.metric,
@@ -231,6 +297,7 @@ def _mine(args, device, preemption: Optional[_Preemption]) -> int:
         root_order=args.root_order,
         sample_fraction=args.sample_fraction, confidence=args.confidence,
         sample_seed=args.sample_seed, sample_rounds=args.sample_rounds,
+        blocks_per_super=args.blocks_per_super,
         match=dataclasses.replace(
             MatchConfig.for_graph(g, cap=args.cap),
             **({"root_block": args.root_block}
@@ -243,25 +310,25 @@ def _mine(args, device, preemption: Optional[_Preemption]) -> int:
     else:
         res = mine(g, cfg, device=device, calibration=args.calibration)
 
-    print(f"[mine] done in {res.elapsed_s:.2f}s on {device}"
-          f"{' (TIMED OUT)' if res.timed_out else ''}")
-    print(f"[mine] frequent patterns: {len(res.frequent)}  "
-          f"searched: {res.searched}  peak device bytes: "
-          f"{res.peak_device_bytes / 2**20:.1f} MiB")
+    _say(f"[mine] done in {res.elapsed_s:.2f}s on {device}"
+         f"{' (TIMED OUT)' if res.timed_out else ''}")
+    _say(f"[mine] frequent patterns: {len(res.frequent)}  "
+         f"searched: {res.searched}  peak device bytes: "
+         f"{res.peak_device_bytes / 2**20:.1f} MiB")
     if res.health.degraded:
-        print(f"[mine] health: {res.health.to_dict()['counts']} — results "
-              f"are exact; see --json health.events for detail")
+        _say(f"[mine] health: {res.health.to_dict()['counts']} — results "
+             f"are exact; see --json health.events for detail")
     for lvl, st in res.per_level.items():
         pretty = {k: (round(v, 3) if isinstance(v, float) else v)
                   for k, v in st.items()
                   if k != "block_peaks"}  # long per-block list; JSON only
-        print(f"[mine]   level {lvl}: {pretty}")
+        _say(f"[mine]   level {lvl}: {pretty}")
     for pat, sup in res.frequent[:10]:
         tau = tau_threshold(args.sigma, args.lam, pat.k)
-        print(f"[mine]   k={pat.k} sup={sup} (tau={tau}) "
-              f"labels={pat.labels.tolist()} edges={pat.edges()}")
+        _say(f"[mine]   k={pat.k} sup={sup} (tau={tau}) "
+             f"labels={pat.labels.tolist()} edges={pat.edges()}")
     if len(res.frequent) > 10:
-        print(f"[mine]   … and {len(res.frequent) - 10} more")
+        _say(f"[mine]   … and {len(res.frequent) - 10} more")
 
     # warm-start future pricing: fold the measured escalation fraction of
     # this run's sampled levels into the calibration file (schema 3)
@@ -270,14 +337,14 @@ def _mine(args, device, preemption: Optional[_Preemption]) -> int:
             and not v["sampled"].get("exact", False)]
     decided = sum(int(d.get("escalated", 0)) + int(d.get("pruned", 0))
                   for d in samp)
-    if decided > 0 and not res.timed_out:
+    if decided > 0 and not res.timed_out and process_rank() == 0:
         measured = sum(int(d.get("escalated", 0)) for d in samp) / decided
         where = persist_escalation_fraction(measured, path=args.calibration)
         if where:
-            print(f"[mine] calibration: measured escalation fraction "
-                  f"{measured:.3f} folded into {where}")
+            _say(f"[mine] calibration: measured escalation fraction "
+                 f"{measured:.3f} folded into {where}")
 
-    if args.json:
+    if args.json and process_rank() == 0:
         with open(args.json, "w") as f:
             json.dump(result_json(args, res), f, indent=2, sort_keys=True)
     return 0

@@ -25,8 +25,8 @@ plan is installed):
   * ``session.snapshot``  — after a session snapshot is fully persisted
                             (kill-at-snapshot class)
   * ``level.distributed`` — entry of the distributed level executor
-                            (mesh-failure class; nothing in this package
-                            fires it until the distributed plane exists)
+                            (mesh-failure class: an ``error`` there takes
+                            `mine()`'s fallback to the batched plane)
   * ``train.step``        — start of every guarded training step of
                             ``launch/train.py`` (straggler class)
 

@@ -9,9 +9,10 @@ manifest/COMMIT protocol:
     candidates of the next level, τ/telemetry bookkeeping) is snapshotted;
   * **inside a level**, the carried state of the in-flight pattern group
     is snapshotted every ``checkpoint_every`` state updates — one update
-    per root block of the batched plane, one per completed sample group
-    and one at classification on the sampled plane — so a kill
-    mid-pattern loses at most ``checkpoint_every`` blocks of device work;
+    per root block of the batched plane, one per logical super-block of
+    the distributed plane, one per completed sample group and one at
+    classification on the sampled plane — so a kill mid-pattern loses at
+    most ``checkpoint_every`` of them;
   * the metric state on the card (mIS bitmaps/counters, MNI/frac tables)
     is copied to host and saved as full arrays; a resume places it on the
     session's device again.
@@ -22,8 +23,14 @@ uninterrupted run's, except wall-clock fields (``elapsed_s``, per-level
 ``wall_s``).  A crash *during* a save never corrupts the previous
 snapshot (`train/checkpoint.py`'s COMMIT guarantee), so the worst case is
 re-doing work since the last committed snapshot — never wrong results.
-This is the reference's ``repro.runtime.session``; the distributed plane
-(and so ``blocks_per_super`` pinning) is not ported yet.
+
+Under a ``torch.distributed`` group every rank runs the session; rank 0
+alone writes snapshots, and every rank restores the same one.  The
+distributed plane's super-block schedule is pinned
+(`DEFAULT_BLOCKS_PER_SUPER`) and its carried state is replicated, so a run
+killed at one world size resumes at another to the same `MiningResult`
+except ``wall_s`` and ``dispatches`` (launches are a property of the
+mesh).  This is the reference's ``repro.runtime.session``.
 """
 from __future__ import annotations
 
@@ -32,7 +39,9 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from ..core import distributed as distributed_lib
 from ..core.batched import GroupState, PatternOutcome
+from ..core.distributed import SuperBlockState
 from ..core.flexis import (
     MiningConfig, MiningLoopState, MiningResult, initial_candidates, mine,
 )
@@ -47,7 +56,13 @@ from .state import (
 )
 from .resume import load_session, session_fingerprint
 
-__all__ = ["MiningSession", "PreemptedError"]
+__all__ = ["MiningSession", "PreemptedError", "DEFAULT_BLOCKS_PER_SUPER"]
+
+# distributed-plane sessions pin the logical super-block width so the
+# schedule (and with it every accounting field) survives a change of world
+# size; 8 root blocks keep up to 8 ranks busy a super-block while bounding
+# the work a mid-super-block kill loses
+DEFAULT_BLOCKS_PER_SUPER = 8
 
 
 class PreemptedError(BaseException):
@@ -63,10 +78,11 @@ class PreemptedError(BaseException):
 class _LevelRecorder:
     """Per-level hooks object handed to the level executors.
 
-    Implements the duck-typed surface `evaluate_level_batched` and
-    `evaluate_level_sampled` document: replays completed groups from the
-    resume cursor, hands the in-flight group its carried state, and
-    records every state update back into the session for snapshotting.
+    Implements the duck-typed surface `evaluate_level_batched`,
+    `evaluate_level_sampled` and `evaluate_level_distributed` document:
+    replays completed groups from the resume cursor, hands the in-flight
+    group its carried state, and records every state update back into the
+    session for snapshotting.
     """
 
     def __init__(self, session: "MiningSession", level: int,
@@ -78,6 +94,7 @@ class _LevelRecorder:
         self._resume = resume_cursor
         self.inflight_key: Optional[Tuple[int, int]] = None
         self.inflight_group: Optional[GroupState] = None
+        self.inflight_super: Optional[SuperBlockState] = None
         self.plan: Optional[dict] = (
             resume_cursor.plan if resume_cursor else None)
         self.sampled: Optional[SampledCursor] = (
@@ -123,15 +140,20 @@ class _LevelRecorder:
     def group_resume(self, k: int, lo: int):
         if self._resume is None or self._resume.inflight_key != (k, lo):
             return None
-        return self._resume.inflight_group
+        return (self._resume.inflight_group
+                if self._resume.inflight_group is not None
+                else self._resume.inflight_super)
 
     # -- record side --------------------------------------------------------
     def record_plan(self, plan: dict) -> None:
         self.plan = plan
 
-    def on_group_state(self, k: int, lo: int, state: GroupState) -> None:
+    def on_group_state(self, k: int, lo: int, state) -> None:
         self.inflight_key = (k, lo)
-        self.inflight_group = state
+        if isinstance(state, SuperBlockState):
+            self.inflight_super, self.inflight_group = state, None
+        else:
+            self.inflight_group, self.inflight_super = state, None
         self._session._on_state_update()
 
     def on_group_done(self, k: int, lo: int, idxs, outcomes,
@@ -145,6 +167,21 @@ class _LevelRecorder:
             replans=int(replans)))
         self.inflight_key = None
         self.inflight_group = None
+        self.inflight_super = None
+
+    def drop_inflight(self) -> None:
+        """Discard the in-flight group/super-block state (plane fallback: a
+        batched re-run of the level cannot consume a distributed
+        super-block cursor; completed groups stay, their outcomes are
+        plane-agnostic)."""
+        self.inflight_key = None
+        self.inflight_group = None
+        self.inflight_super = None
+        if self._resume is not None:
+            # the resume cursor may hold the other plane's in-flight state
+            self._resume = dataclasses.replace(
+                self._resume, inflight_key=None, inflight_group=None,
+                inflight_super=None)
 
     def on_sampled(self, d: dict) -> None:
         """Sampled-phase snapshot point (after each sample group and when
@@ -158,6 +195,7 @@ class _LevelRecorder:
             groups_done=list(self.groups_done),
             inflight_key=self.inflight_key,
             inflight_group=self.inflight_group,
+            inflight_super=self.inflight_super,
             plan=self.plan,
             sampled=self.sampled,
         )
@@ -210,7 +248,8 @@ class MiningSession:
     Args:
       g: the data graph (must be byte-identical across resumes — validated
         via a fingerprint stored in every snapshot).
-      cfg: `MiningConfig`.
+      cfg: `MiningConfig`; on the distributed plane an unset
+        ``blocks_per_super`` is pinned to `DEFAULT_BLOCKS_PER_SUPER`.
       checkpoint_dir: snapshot root (one `train/checkpoint.py` step per
         snapshot).
       device: where to mine (``"cuda"`` unless the caller asks for the
@@ -220,7 +259,8 @@ class MiningSession:
         default search); a resumed run replans with the constants pinned
         in the snapshot instead.
       checkpoint_every: snapshot cadence in carried-state updates (root
-        blocks, sample groups); level boundaries always snapshot.  ``0``
+        blocks, super-blocks, sample groups); level boundaries always
+        snapshot.  ``0``
         disables mid-level snapshots (boundaries only).
       keep_last: retention, forwarded to `checkpoint.save`.
       resume: ``"auto"`` (continue a snapshot when one exists),
@@ -247,6 +287,9 @@ class MiningSession:
             raise ValueError('resume must be "auto", "never" or "must"')
         if checkpoint_every < 0:
             raise ValueError("checkpoint_every must be >= 0")
+        if cfg.execution == "distributed" and cfg.blocks_per_super is None:
+            cfg = dataclasses.replace(
+                cfg, blocks_per_super=DEFAULT_BLOCKS_PER_SUPER)
         self.g = g
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -270,6 +313,9 @@ class MiningSession:
         self._final_save = False        # next _save is the run's last
         self._preempt_requested = False
         self.health = health if health is not None else RunHealth()
+        # under a process group rank 0 alone writes; the others keep the
+        # same step count and fire the same fault points
+        self._writer = distributed_lib.process_rank() == 0
 
     def request_preempt(self) -> None:
         """Ask the run to stop at the next snapshot point.
@@ -300,13 +346,34 @@ class MiningSession:
                 f"{type(errs[0]).__name__}: {errs[0]}", step=self._step)
             raise errs[0]
 
+    def _agree_preempt(self) -> None:
+        """The ranks of a group stop together: a preemption one of them
+        received holds for all (a rank alone would leave the others in a
+        collective).  Called at every snapshot point."""
+        self._preempt_requested = distributed_lib.world_any(
+            self._preempt_requested)
+
     def _save(self, state: SessionState) -> None:
+        self._step += 1
+        if self._writer:
+            self._write(state)
+        self.snapshots_written += 1
+        self._updates = 0
+        faults.fire("session.snapshot", step=self._step)
+        if self._preempt_requested:
+            self.health.record(
+                "preempted", f"stopped after committed snapshot "
+                f"step {self._step}", step=self._step)
+            raise PreemptedError(
+                f"preempted; snapshot step {self._step} committed under "
+                f"{self.dir} — resume to continue")
+
+    def _write(self, state: SessionState) -> None:
         if state.calibration is None:
             state = dataclasses.replace(state, calibration=self._calibration)
         leaves, extra = encode_session(state, self.cfg.metric)
         extra["fingerprint"] = self._fingerprint
         extra["meta"] = self.meta
-        self._step += 1
         # depth-1 write-behind: drain (and surface any failure of) the
         # previous background write before starting the next, so snapshot
         # writes stay ordered and at most one overlaps compute
@@ -319,19 +386,10 @@ class MiningSession:
         else:
             ckpt.save_async(self.dir, self._step, leaves, extra=extra,
                             keep_last=self.keep_last, health=self.health)
-        self.snapshots_written += 1
-        self._updates = 0
-        faults.fire("session.snapshot", step=self._step)
-        if self._preempt_requested:
-            self.health.record(
-                "preempted", f"stopped after committed snapshot "
-                f"step {self._step}", step=self._step)
-            raise PreemptedError(
-                f"preempted; snapshot step {self._step} committed under "
-                f"{self.dir} — resume to continue")
 
     def _on_state_update(self) -> None:
         """Called by the recorder after every carried-state update."""
+        self._agree_preempt()
         self._updates += 1
         if not self._preempt_requested:  # a preempt snapshots immediately
             if self.checkpoint_every == 0:
@@ -344,6 +402,7 @@ class MiningSession:
         self._save(SessionState(loop=loop, cursor=self._recorder.cursor()))
 
     def _on_level_end(self, loop: MiningLoopState) -> None:
+        self._agree_preempt()
         self._boundary = loop
         self._recorder = None
         # the final boundary (no candidates left) is the run's last write:

@@ -20,9 +20,9 @@ the resume contract.  The sampled cursor's escalation-reuse records
 (``groups[...]["replay"]``) are int32 arrays in the port and JSON lists in
 the reference: the codec writes lists and reads them back as arrays.
 ``decode_session`` places the in-flight metric state on the session's
-device.  A distributed in-flight cursor (the reference's
-``SuperBlockState``) has no counterpart until the distributed plane is
-ported, and decoding one raises.
+device.  The distributed plane's in-flight cursor (`SuperBlockState`) is
+saved in the reference's format: its replicated bitmaps (as uint32 words)
+and counts are the two leaves, the rest goes into ``extra``.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.batched import GroupState, PatternOutcome
+from ..core.distributed import SuperBlockState
 from ..core.flexis import MiningLoopState, PatternStats
 from ..core.pattern import Pattern
 from ..train.checkpoint import host_array
@@ -254,6 +255,7 @@ class LevelCursor:
     groups_done: List[GroupDone]
     inflight_key: Optional[Tuple[int, int]] = None       # (k, lo)
     inflight_group: Optional[GroupState] = None          # batched plane
+    inflight_super: Optional[SuperBlockState] = None     # distributed plane
     # the planner's recorded decision for the in-flight level
     # (`LevelPlan.to_dict()`; None under forced execution modes except
     # "sampled", which records the level's block draw here) — a resume
@@ -357,6 +359,25 @@ def encode_session(state: SessionState, metric: str,
         }
         extra["cursor"]["group"] = list(cur.inflight_key)
         extra["cursor"]["block"] = int(gs.next_block)
+    elif cur.inflight_super is not None:
+        ss = cur.inflight_super
+        leaves = [np.ascontiguousarray(host_array(ss.bitmaps), np.int32
+                                       ).view(np.uint32),
+                  np.asarray(host_array(ss.counts), np.int32)]
+        ss_max = (ss.max_count if ss.max_count is not None
+                  else np.zeros_like(ss.found))
+        c["inflight"] = {
+            "plane": "distributed",
+            "next_block": int(ss.next_block),
+            "found": ss.found.tolist(),
+            "overflowed": ss.overflowed.tolist(),
+            "blocks_run": ss.blocks_run.tolist(),
+            "super_blocks_run": int(ss.super_blocks_run),
+            "dispatches": int(ss.dispatches),
+            "max_count": ss_max.tolist(),
+        }
+        extra["cursor"]["group"] = list(cur.inflight_key)
+        extra["cursor"]["block"] = int(ss.next_block)
     else:
         c["inflight"] = None
     extra["level_cursor"] = c
@@ -405,10 +426,6 @@ def decode_session(leaves: List[np.ndarray], extra: Dict[str, Any],
     n_leaves = extra["pytree"]["n_leaves"]
     if inflight is not None and n_leaves != len(leaves):
         raise ValueError(f"leaf count mismatch: {n_leaves} vs {len(leaves)}")
-    if inflight is not None and inflight["plane"] == "distributed":
-        raise NotImplementedError(
-            "this snapshot holds a distributed-plane in-flight cursor; the "
-            "distributed plane is not ported yet (ROADMAP Queue 1 item 3)")
     if inflight is not None and inflight["plane"] == "batched":
         if _mis_state(metric):
             bitmaps = np.ascontiguousarray(leaves[0]).view(np.int32)
@@ -434,5 +451,21 @@ def decode_session(leaves: List[np.ndarray], extra: Dict[str, Any],
                          else np.asarray(inflight["block_peaks"], np.int64)),
             cap=inflight.get("cap"),
             replans=int(inflight.get("replans", 0)),
+        )
+    elif inflight is not None and inflight["plane"] == "distributed":
+        bitmaps = np.ascontiguousarray(leaves[0]).view(np.int32)
+        cursor.inflight_super = SuperBlockState(
+            next_block=inflight["next_block"],
+            bitmaps=torch.as_tensor(bitmaps).to(device, copy=True),
+            counts=torch.as_tensor(np.asarray(leaves[1], np.int32)
+                                   ).to(device, copy=True),
+            found=np.asarray(inflight["found"], np.int64),
+            overflowed=np.asarray(inflight["overflowed"], bool),
+            blocks_run=np.asarray(inflight["blocks_run"], np.int64),
+            super_blocks_run=inflight["super_blocks_run"],
+            dispatches=inflight["dispatches"],
+            max_count=np.asarray(
+                inflight.get("max_count",
+                             [0] * len(inflight["found"])), np.int64),
         )
     return SessionState(loop=loop, cursor=cursor, calibration=calibration)

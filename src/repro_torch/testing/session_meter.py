@@ -27,8 +27,9 @@ class SnapshotMeter:
     """Collects one record per snapshot while active.
 
     ``snapshots``: per `_save` call — ``level``, ``kind`` ("boundary",
-    "batched" for an in-flight group, "sampled" for a sample-phase cursor,
-    "level" for a cursor between groups), ``mining_s`` (time the mining
+    "batched" for an in-flight group, "distributed" for an in-flight
+    super-block, "sampled" for a sample-phase cursor, "level" for a
+    cursor between groups), ``mining_s`` (time the mining
     thread spent in it).  ``writes``: per committed write — ``step``,
     ``bytes`` on disk, ``write_s``.  ``updates``: carried-state updates
     (the points a cadence of 1 snapshots at) by level.  With ``live`` each
@@ -60,6 +61,7 @@ class SnapshotMeter:
             cur = state.cursor
             kind = ("boundary" if cur is None
                     else "batched" if cur.inflight_group is not None
+                    else "distributed" if cur.inflight_super is not None
                     else "sampled" if cur.sampled is not None else "level")
             level = state.loop.level if cur is None else cur.level
             t0 = time.perf_counter()

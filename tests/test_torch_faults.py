@@ -7,9 +7,10 @@ each end in a result equal to the fault-free oracle's (the port's
 ``mine()``, which ``tests/test_torch_session.py`` holds against the
 reference), with the expected recovery recorded in `RunHealth`.  Also the
 COMMIT-chain fallback per artifact, the every-step-corrupt degradation,
-in-process preemption and the env round trip.  ``level.distributed`` has
-no cell: nothing fires it until the distributed plane is ported.  CPU, no
-JAX.
+in-process preemption and the env round trip.  ``level.distributed`` is
+covered by the reference's two fallback tests: a distributed level that
+fails is re-run on the batched plane (the result equals batched), and a
+session killed after such a fallback resumes.  CPU, no JAX.
 """
 import dataclasses
 
@@ -139,10 +140,60 @@ def test_fault_matrix_equals_oracle(tmp_path, oracle, specs, expect):
         assert res.health.count(expect) >= 1, res.health.to_dict()
 
 
+# points the fallback tests below fire (the matrix runs the batched plane)
+FALLBACK_POINTS = {"level.distributed"}
+
+
 def test_fault_matrix_cells_cover_every_point():
     covered = {s.point for _, specs, _ in MATRIX for s in specs}
-    assert covered == {p for p in faults.POINTS if p != "level.distributed"}
-    assert "level.distributed" in faults.POINTS
+    assert covered == {p for p in faults.POINTS if p not in FALLBACK_POINTS}
+    assert covered | FALLBACK_POINTS == set(faults.POINTS)
+
+
+# ---------------------------------------------------------------------------
+# graceful degradation: distributed → batched plane fallback
+# ---------------------------------------------------------------------------
+
+def _supports(res):
+    return [(p.key(), s) for p, s in res.frequent]
+
+
+def test_distributed_fallback_to_batched():
+    """Every distributed level failing degrades the whole run to the
+    batched plane: the forced batched run's result, plus a plane_fallback
+    health event per level."""
+    g = _graph()
+    cfg = _cfg("mis_luby", execution="distributed")
+    want = mine(g, dataclasses.replace(cfg, execution="batched"),
+                device="cpu")
+    faults.install(FaultPlan(
+        [FaultSpec("level.distributed", "error", at=1, times=99)]))
+    try:
+        res = mine(g, cfg, device="cpu")
+    finally:
+        faults.clear()
+    assert res.health.count("plane_fallback") == len(res.per_level) >= 1, \
+        res.health.to_dict()
+    assert _norm(res) == _norm(want)
+
+
+def test_distributed_fallback_session_killed_and_resumed(tmp_path):
+    """A session killed mid-level *after* the plane fallback resumes onto
+    the rewritten (batched) plan: the recorded plan overrides the forced
+    distributed execution for the in-flight level."""
+    g = _graph()
+    cfg = _cfg("mis_luby", execution="distributed")
+    want = mine(g, dataclasses.replace(cfg, execution="batched"),
+                device="cpu")
+    plan = FaultPlan([
+        FaultSpec("level.distributed", "error", at=1, times=99),
+        FaultSpec("session.snapshot", "crash", at=2),
+    ])
+    res = _run_with_faults(g, cfg, tmp_path, plan, checkpoint_every=1,
+                           keep_last=100)
+    assert any(f["point"] == "session.snapshot" for f in plan.fired)
+    assert res.health.count("plane_fallback") >= 1
+    assert _supports(res) == _supports(want)
 
 
 @pytest.mark.parametrize("artifact", ["array", "manifest", "commit"])

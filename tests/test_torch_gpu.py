@@ -251,6 +251,23 @@ def test_mine_defaults_launch_both_kernels(cuda, execution):
     assert mis_bitmap_select.launches > 0
 
 
+def test_mine_distributed_cuda_equals_cpu(cuda):
+    # the distributed plane on a mesh of one (no process group) gives the
+    # same run on the card as on the CPU, and its matching launches the
+    # frontier kernel
+    g = random_graph(400, 3, 3, seed=17)
+    match = MatchConfig.for_graph(g, cap=2048, root_block=32, chunk=8)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        cfg = MiningConfig(sigma=6, metric="mis_luby", max_pattern_size=3,
+                           execution="distributed", blocks_per_super=3,
+                           match=match)
+        frontier_expand.launches = 0
+        res[dev] = _mine_summary(mine(g, cfg, device=dev))
+    assert res["cpu"] == res["cuda"]
+    assert res["cuda"][0] and frontier_expand.launches > 0
+
+
 def _mine_summary(r):
     per_level = {lvl: {k: v for k, v in st.items() if k != "wall_s"}
                  for lvl, st in r.per_level.items()}

@@ -2,7 +2,8 @@
 
 ``evaluate_level_batched`` outcomes, ``mine()`` on the batched and the
 sequential planes for every metric, and the CLI's ``--json`` must equal the
-reference's (all but wall-clock fields).  Also: importing the port never
+reference's (all but wall-clock fields), ``--execution distributed`` too.
+Also: importing the port never
 imports JAX or ``repro``, and asking for CUDA without a card raises before
 any work is done.
 """
@@ -172,9 +173,18 @@ def test_cuda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("execution", ["distributed"])
-def test_unported_planes_raise(execution):
-    g = t_dataset("gnutella", scale=0.005)
-    cfg = TMiningConfig(sigma=4, metric="mis_luby", execution=execution,
-                        match=TMatchConfig.for_graph(g))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_mine(g, cfg, device="cpu")
+def test_unported_planes_raise(tmp_path, execution):
+    """The plane that raised until it was ported: the CLI's
+    ``--execution distributed`` without torchrun's environment (a mesh of
+    one) writes the reference CLI's ``--json`` at one device, minus wall
+    clock; ``--metric mis`` is forced to ``mis_luby`` by both."""
+    flags = ["--dataset", "gnutella", "--scale", "0.005", "--sigma", "4",
+             "--max-size", "3", "--execution", execution, "--metric", "mis"]
+    assert j_cli.main(flags + ["--json", str(tmp_path / "j.json")]) == 0
+    assert t_cli.main(flags + ["--device", "cpu",
+                               "--json", str(tmp_path / "t.json")]) == 0
+    want = json.loads((tmp_path / "j.json").read_text())
+    got = json.loads((tmp_path / "t.json").read_text())
+    assert _strip_wall_clock(got) == _strip_wall_clock(want)
+    assert got["metric"] == "mis_luby" and got["n_frequent"] > 0
+    assert not got["health"]["events"]

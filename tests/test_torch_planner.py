@@ -196,11 +196,38 @@ def test_plan_cases_cover_every_decision():
 
 
 def test_distributed_still_raises():
-    _, tg = _rmat_like()
-    cfg = TMiningConfig(sigma=3, metric="mis_luby", execution="distributed",
-                        match=TMatchConfig.for_graph(tg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplanner.ExecutionPlanner(tg, cfg)
+    """The reference's ``test_distributed_gating`` on the port (the plane
+    raised here until it was ported): auto picks distributed only with
+    metric mis_luby, more than one device, a pinned super-block schedule
+    and at least two root blocks a device — with the reference's plan,
+    decision by decision."""
+    jg, tg = _rmat_like()
+    cost = jplanner.CostModel(dispatch_overhead_s=5e-3, lane_time_s=1e-10)
+    pats = j_initial(jg)[:4]
+
+    def plane(metric, root_block=16, **kw):
+        jm = JMatchConfig.for_graph(jg, cap=1024, root_block=root_block)
+        want = jplanner.ExecutionPlanner(
+            jg, JMiningConfig(sigma=3, metric=metric, match=jm, **kw),
+            cost_model=cost, n_devices=4,
+        ).plan_level(1, pats, [2] * 4)
+        got = tplanner.ExecutionPlanner(
+            tg, TMiningConfig(sigma=3, metric=metric, match=_t_match(jm),
+                              **kw),
+            cost_model=tplanner.CostModel.from_dict(cost.to_dict()),
+            n_devices=4,
+        ).plan_level(1, [_t_pattern(p) for p in pats], [2] * 4)
+        assert got.to_dict() == want.to_dict()
+        return got.plane
+
+    assert plane("mis_luby", blocks_per_super=4) == "distributed"  # 8 blocks
+    # no pinned schedule → never distributed
+    assert plane("mis_luby") != "distributed"
+    # wrong metric → never distributed (the greedy scan is not collective)
+    assert plane("mis", blocks_per_super=4) != "distributed"
+    # 4 blocks cannot feed 4 devices twice over
+    assert plane("mis_luby", root_block=32, blocks_per_super=4) \
+        != "distributed"
     assert TMiningConfig(sigma=2).execution == "auto"
 
 

@@ -57,6 +57,7 @@ from repro_torch.runtime import (
     faults, load_session, session_fingerprint,
 )
 from repro_torch.runtime import state as tstate
+from repro_torch.testing.shared import shared_result
 from repro_torch.train import checkpoint as ckpt
 
 REPO = Path(__file__).resolve().parents[1]
@@ -318,12 +319,64 @@ def test_codec_equals_reference(case, metric):
 
 
 def test_distributed_cursor_raises():
-    _, extra = tstate.encode_session(_states("inflight", "mis")[1], "mis")
-    extra["level_cursor"]["inflight"]["plane"] = "distributed"
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tstate.decode_session([np.zeros((4, 3), np.uint32),
-                               np.zeros(4, np.int32)], extra, "mis_luby",
-                              device="cpu")
+    """The distributed plane's in-flight cursor (decoding it raised until
+    the plane was ported) round-trips through both codecs: equal extras
+    and leaves, the reference's codec decodes the port's snapshot and the
+    port's codec the reference's, leaf by leaf (bit 31 of a word set)."""
+    from repro.core.distributed import SuperBlockState as JSuper
+
+    from repro_torch.interop import (
+        super_block_state_from_numpy, super_block_state_to_numpy,
+    )
+
+    rng = np.random.default_rng(5)
+    words = rng.integers(0, 2**32, (3, 4), dtype=np.uint64).astype(np.uint32)
+    words[0, 0] |= np.uint32(1 << 31)
+    js = JSuper(next_block=6, bitmaps=words,
+                counts=np.array([3, 0, 7], np.int32),
+                found=np.array([40, 0, 93], np.int64),
+                overflowed=np.array([False, False, True]),
+                blocks_run=np.array([6, 3, 6], np.int64), super_blocks_run=2,
+                dispatches=3, max_count=np.array([11, 0, 64], np.int64))
+    ts = super_block_state_from_numpy(js)
+    assert ts.bitmaps.dtype == torch.int32
+    jl, tl = _loops()
+    cal = {**jplanner.CostModel().to_dict(), "n_devices": 2}
+    plan = {"plane": "distributed", "cap": 512, "max_batch": 64}
+    j_leaves, j_extra = jstate.encode_session(jstate.SessionState(
+        loop=jl, calibration=cal, cursor=jstate.LevelCursor(
+            level=2, groups_done=[], inflight_key=(3, 0), inflight_super=js,
+            plan=plan)), "mis_luby")
+    t_leaves, t_extra = tstate.encode_session(tstate.SessionState(
+        loop=tl, calibration=cal, cursor=tstate.LevelCursor(
+            level=2, groups_done=[], inflight_key=(3, 0), inflight_super=ts,
+            plan=plan)), "mis_luby")
+    as_json = lambda d: json.loads(json.dumps(d))  # noqa: E731
+    assert as_json(t_extra) == as_json(j_extra)
+    assert t_extra["level_cursor"]["inflight"]["plane"] == "distributed"
+    assert len(t_leaves) == len(j_leaves) == 2
+    for a, b in zip(t_leaves, j_leaves):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+    def leaves_of(ss):
+        d = ss if isinstance(ss, dict) else vars(ss)
+        return {k: np.asarray(v).tolist() for k, v in d.items()}
+
+    want = leaves_of(js)
+    # the port's snapshot through the reference's codec
+    back = jstate.decode_session(t_leaves, as_json(t_extra), "mis_luby")
+    assert back.cursor.inflight_key == (3, 0)
+    assert leaves_of(back.cursor.inflight_super) == want
+    # the reference's snapshot through the port's codec
+    back = tstate.decode_session([np.asarray(x) for x in j_leaves],
+                                 as_json(j_extra), "mis_luby", device="cpu")
+    ss = back.cursor.inflight_super
+    assert back.cursor.inflight_key == (3, 0) and back.cursor.plan == plan
+    assert ss.bitmaps.dtype == torch.int32
+    assert leaves_of(super_block_state_to_numpy(ss)) == want
+    assert as_json(tstate.encode_session(back, "mis_luby")[1]) \
+        == as_json(t_extra)
 
 
 # ---------------------------------------------------------------------------
@@ -336,8 +389,13 @@ _KILL_AT = 5   # a mid-level-1 snapshot of the batched complete run
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The reference's mine() and its session cut at snapshot `_KILL_AT`,
-    on the port's test graph (batched, mis, complete)."""
-    d = tmp_path_factory.mktemp("ref")
+    on the port's test graph (batched, mis, complete); once for the test
+    session (`shared_result`)."""
+    return shared_result(tmp_path_factory, "torch-session-reference",
+                         _reference)
+
+
+def _reference(d: Path):
     cal = d / "cal.json"
     cal.write_text(json.dumps(jplanner.CostModel().to_dict()))
     old = os.environ.get(jplanner.CALIBRATION_ENV)

@@ -72,6 +72,7 @@ from repro_torch.models.dlrm import dlrm_loss
 from repro_torch.models.transformer import lm_loss
 from repro_torch.runtime import faults
 from repro_torch.testing.parity import agg_inputs, bag_inputs
+from repro_torch.testing.shared import shared_result
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.step import trainable_params
 
@@ -217,7 +218,13 @@ LM_B, LM_S = 2, 16
 
 
 @pytest.fixture(scope="module")
-def lm_ref():
+def lm_ref(tmp_path_factory):
+    """Once for the test session (`shared_result`)."""
+    return shared_result(tmp_path_factory, "torch-train-lm_ref",
+                         lambda _: _lm_ref())
+
+
+def _lm_ref():
     jcfg = j_qwen3.REDUCED
     params = j_transformer_init(jax.random.key(0), jcfg)
     toks = np.random.default_rng(0).integers(
@@ -309,7 +316,13 @@ def test_adamw_state_round_trips_through_interop(lm_ref):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def dlrm_ref():
+def dlrm_ref(tmp_path_factory):
+    """Once for the test session (`shared_result`)."""
+    return shared_result(tmp_path_factory, "torch-train-dlrm_ref",
+                         lambda _: _dlrm_ref())
+
+
+def _dlrm_ref():
     cfg = j_recsys.REDUCED
     params = j_dlrm.dlrm_init(jax.random.key(3), cfg)
     j_arch = j_recsys.RecsysArch("dlrm-rm2", j_recsys.CONFIG, cfg)
@@ -362,7 +375,13 @@ def test_dlrm_train_step_matches_reference(dlrm_ref):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def sage_ref():
+def sage_ref(tmp_path_factory):
+    """Once for the test session (`shared_result`)."""
+    return shared_result(tmp_path_factory, "torch-train-sage_ref",
+                         lambda _: _sage_ref())
+
+
+def _sage_ref():
     jcfg, init, jloss = j_sage_cfg.ARCH._build("minibatch_lg", True)
     params = init(jax.random.key(1))
     gb = j_sage_cfg.ARCH.reduced_inputs("minibatch_lg", None)["batch"]
