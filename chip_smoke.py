@@ -78,6 +78,20 @@ line):
                first 128 prompt tokens through decode ends on the prefill's
                logits within 0.02·max|logit| + 0.05 (``launch/serve.py``
                says why);
+  6b. serve-<arch> — the other four LM archs through ``serve.serve()``
+               at full width, random weights from seed 0 built layer by
+               layer in bf16, batch 4, a 1 024-token prompt, 16 new
+               tokens (`SERVE_ARCHS`): qwen3-moe-30b-a3b (48 layers,
+               replay 64, below its prefill's expert capacity 80),
+               gemma2-27b (46) and minitron-4b (32) with replay 128, and
+               mixtral-8x7b cut in depth to 16 of its 32 layers (printed;
+               replay 128); each with counts zeroed just before and read
+               just after, the same checks as phase 6, and for the MoE
+               archs a second launch of layer 0's MoE on the timed
+               prefill's input that must repeat its bytes; prints
+               ``ttft_s``, decode step ms, ``moe_capacity``,
+               ``moe_dropped`` and peak memory, and frees each model
+               before the next;
   7. recsys  — dlrm-rm2 at full width (26 tables of 1 000 000 × 64, random
                from seed 0) through the arch's serve and retrieval steps:
                serve_p99 (batch 512), serve_bulk (262 144) and
@@ -105,12 +119,17 @@ line):
                block at level 2 also by pass, with its random loads and
                scratch; the mIS kernel's rows tested, passed by its
                prefilter and decided at the hub block), the flash kernel
-               at the serve phase's per-layer shape, the embedding bag at
+               at the serve phase's per-layer shape (the row) and at
+               phase 6b's (`FLASH_ARCH_SHAPES`: qwen3-moe's H 32 / KV 4,
+               minitron's 24 / 8, gemma2's local layer 32 / 16 with
+               softcap 50 and window 4 096 at S 5 120; printed, SDPA
+               beside it where it computes the same function), the
+               embedding bag at
                serve_bulk's bags and the gather-aggregate at layer 0 of
                the block, with times (CUDA events), bounds, the library
                call's time and the launch counts of phases 5a (the mining
-               kernels: the reference's default command) and 6–8, as one
-               JSON line;
+               kernels: the reference's default command) and 6–8 (the
+               flash kernel's: phases 6 and 6b), as one JSON line;
  10. session — after the kernel timings, checkpointed sessions through
                the CLI's session flags:
                session-auto (phase 5a's command with ``--checkpoint-dir``
@@ -237,6 +256,25 @@ MIS_EXACT_SIGMA = 4
 # half the smoke; the prefill's own cache feeds decode either way.
 SERVE_FLAGS = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "1024",
                "--gen-len", "32", "--replay-len", "128", "--seed", "0"]
+
+# the other LM archs (6b), each at full width through `serve.serve()` (the
+# CLI has no depth flag): (arch, layers or None for all, replay length).
+# Batch 4, a 1 024-token prompt, 16 new tokens, seed 0.  The replay stays
+# below qwen3-moe's prefill capacity (C = 80; mixtral's is 320), where the
+# prefill drops nothing (`launch/serve.py`), and short because eager
+# decode is host-bound.  mixtral-8x7b runs 16 of its 32 layers: its 93.1
+# GB of bf16 weights do not fit one 80 GB card until sharding exists.
+SERVE_ARCHS = (("qwen3-moe-30b-a3b", None, 64), ("gemma2-27b", None, 128),
+               ("minitron-4b", None, 128), ("mixtral-8x7b", 16, 128))
+SERVE_ARCH_BATCH, SERVE_ARCH_PROMPT, SERVE_ARCH_GEN = 4, 1024, 16
+
+# the flash kernel at those archs' per-layer shapes (phase 9): (name, B, S,
+# H, KV, window, softcap), hd 128, bf16, causal.  gemma2's local layers run
+# at S 5 120 so that the 4 096 window bites (B 1: the plain version holds
+# the (S, S) f32 scores of every head)
+FLASH_ARCH_SHAPES = (("qwen3-moe-30b-a3b", 4, 1024, 32, 4, None, None),
+                     ("minitron-4b", 4, 1024, 24, 8, None, None),
+                     ("gemma2-27b local", 1, 5120, 32, 16, 4096, 50.0))
 
 # the GNN phase (8): the shape's graph at Reddit's size, no cut (build
 # times in PERF.md)
@@ -1015,52 +1053,165 @@ def phase_serve(out: Path) -> int:
     return counts["flash_attention"]
 
 
-def phase_flash_kernel(dev) -> dict:
-    """The flash kernel at the serve phase's per-layer shape: kernel vs
-    plain version, timed beside its bound and the library call."""
-    import torch.nn.functional as F
+def phase_serve_arch(dev, arch: str, n_layers, replay: int) -> int:
+    """One LM arch served at full width through ``serve.serve()`` (its
+    depth cut to ``n_layers`` where given); returns the flash kernel's
+    launches in that run.  The model is freed before the next phase."""
+    import gc
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve as cli
+    from repro_torch.models.transformer import transformer_init
+
+    cfg = get_arch(arch).cfg
+    tag = f"serve-{arch}"
+    if n_layers is not None:
+        _log(f"{tag}: cut in depth to {n_layers} of its {cfg.n_layers} "
+             f"layers (all {cfg.n_layers} hold {cfg.param_count() * 2} "
+             f"bytes of bf16 weights, more than one card)")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    B, P, gen = SERVE_ARCH_BATCH, SERVE_ARCH_PROMPT, SERVE_ARCH_GEN
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = transformer_init(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights = torch.cuda.memory_allocated() - base
+    init_peak = torch.cuda.max_memory_allocated() - base
+    prompts = cli.make_prompts(cfg.vocab, B, P, 0, dev)
+    seen = {}
+    if cfg.moe_cfg is not None:
+        # layer 0's MoE input and output in the (timed, last) prefill
+        def keep(mod, args, out):
+            if args[0].shape[1] == P:
+                seen["x"], seen["y"] = args[0], out[0]
+        hook = model.layers[0].moe.register_forward_hook(keep)
+    _zero_counts()
+    t0 = time.monotonic()
+    res = cli.serve(model, prompts, gen, replay_len=replay)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = _read_counts()
+    repeat = ""
+    if cfg.moe_cfg is not None:
+        hook.remove()
+        with torch.inference_mode():
+            again = model.layers[0].moe(seen["x"])[0]
+        if _sha256(again) != _sha256(seen["y"]):
+            raise AssertionError(f"{tag}: a second launch of layer 0's MoE "
+                                 f"on the prefill's input changed its bytes")
+        repeat = (f" layer 0's MoE relaunched on the prefill's input: same "
+                  f"bytes (SHA-256 {_sha256(again)[:16]})")
+    _log(f"{tag}: {res['config']} ({res['n_params']} parameters, "
+         f"{cfg.n_layers} layers, {weights} bytes of weights; init "
+         f"{init_s:.2f} s, peak {init_peak} bytes) batch {B} prompt {P} gen "
+         f"{gen}: wall_s={wall:.2f} ttft_s={res['ttft_s']:.4f} "
+         f"replay_s={res['replay_s']:.2f} over {res['replay_len']} tokens "
+         f"decode_step_ms median={res['decode_step_ms_median']:.3f} "
+         f"p90={res['decode_step_ms_p90']:.3f} "
+         f"decode_tokens_per_s={res['decode_tokens_per_s']:.1f} "
+         f"moe_capacity={res['moe_capacity']} "
+         f"moe_dropped={res['moe_dropped']} "
+         f"max_memory_allocated={res['max_memory_allocated']} "
+         f"launches={counts}")
+    capped = ("" if res["prompt_gap_capped"] is None else
+              f" (logits before the final softcap {cfg.final_softcap}; "
+              f"after it the gap is {res['prompt_gap_capped']:.4g})")
+    _log(f"{tag}: prompt gap max_abs={res['prompt_gap']:.4g} against the "
+         f"bound {res['prompt_gap_bound']:.4g}{capped}; elementwise ratio "
+         f"{res['prompt_allclose_ratio']:.4g}; first tokens "
+         f"{res['tokens'][0][:8]}" + repeat)
+    prefills = 1 + 1   # the untimed warm-up prefill and the timed one
+    if res["prefill_flash_launches"] != cfg.n_layers or \
+            counts["flash_attention"] != prefills * cfg.n_layers:
+        raise AssertionError(
+            f"{tag}: a prefill must launch the flash kernel once per layer "
+            f"({cfg.n_layers}): timed prefill {res['prefill_flash_launches']}"
+            f", run {counts['flash_attention']} over {prefills} prefills")
+    if not res["logits_finite"]:
+        raise AssertionError(f"{tag}: non-finite logits")
+    if not res["prompt_gap_ok"]:
+        raise AssertionError(
+            f"{tag}: prompt replay's last logits differ from the prefill's "
+            f"by {res['prompt_gap']}, past {res['prompt_gap_bound']}")
+    del model, prompts, seen, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def _flash_row(dev, B, S, H, KV, hd, *, window=None, softcap=None,
+               label="") -> dict:
+    """The flash kernel at one per-layer shape (bf16, causal): kernel vs
+    plain version, timed beside its bound and, where SDPA computes the
+    same function (no softcap, no window), SDPA's time."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.testing.parity import FLASH_TOL, flash_inputs
 
-    cfg = get_arch("qwen3-1.7b").cfg
-    B, S = 4, 1024
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mask = dict(causal=True, window=window, softcap=softcap)
     q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, dev, seed=1)
     # the kernel's own layout, as ops.flash_attention hands it over
     qf = q.transpose(1, 2).reshape(B * H, S, hd).contiguous()
     kf = k.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
     vf = v.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
-    got = flash_attention_bhsd(qf, kf, vf, causal=True)
+    got = flash_attention_bhsd(qf, kf, vf, **mask)
     got = got.reshape(B, H, S, hd).transpose(1, 2).float()
-    want = flash_attention_ref(q, k, v, causal=True).float()
+    want = flash_attention_ref(q, k, v, **mask).float()
     err = float((got - want).abs().max())
     tol = FLASH_TOL[torch.bfloat16]
     if not torch.allclose(got, want, atol=tol, rtol=tol):
-        raise AssertionError(f"flash_attention at the serve shape: max abs "
-                             f"err {err} past atol = rtol = {tol}")
-    ms = _time_ms(lambda: flash_attention_bhsd(qf, kf, vf, causal=True),
-                  reps=20)
-    plain_ms = _time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
-                        reps=5)
-    q4, k4, v4 = (t.view(B, -1, S, hd) for t in (qf, kf, vf))
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), reps=20)
-    # causal-live work: S(S+1)/2 (query, key) pairs per head, 2·hd FLOPs
-    # each for q·k and for p·v; bytes: q, k, v and o once, bf16
-    flops = 4.0 * hd * B * H * S * (S + 1) / 2
+        raise AssertionError(f"flash_attention {label}: max abs err {err} "
+                             f"past atol = rtol = {tol}")
+    del got, want
+    ms = _time_ms(lambda: flash_attention_bhsd(qf, kf, vf, **mask), reps=20)
+    plain_ms = _time_ms(lambda: flash_attention_ref(q, k, v, **mask),
+                        reps=5 if S <= 2048 else 2)
+    library_ms = None
+    if window is None and softcap is None:
+        q4, k4, v4 = (t.view(B, -1, S, hd) for t in (qf, kf, vf))
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), reps=20)
+    # live work: the (query, key) pairs the causal window keeps (S(S+1)/2
+    # without a window) per head, 2·hd FLOPs each for q·k and for p·v (the
+    # softcap's tanh, one a pair, is not counted); bytes: q, k, v and o
+    # once, bf16
+    W = S if window is None else min(window, S)
+    pairs = W * (W + 1) // 2 + (S - W) * W
+    flops = 4.0 * hd * B * H * pairs
     nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
     t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
-    _log(f"kernels: flash_attention B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
-         f"causal: ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
-         f"plain_ms={plain_ms:.3f} sdpa_ms={library_ms:.4f} "
+    sdpa = "none" if library_ms is None else f"{library_ms:.4f}"
+    _log(f"kernels: flash_attention {label} B={B} S={S} H={H} KV={KV} "
+         f"hd={hd} bf16 causal window={window} softcap={softcap}: "
+         f"ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+         f"plain_ms={plain_ms:.3f} sdpa_ms={sdpa} "
          f"bound_ms={max(t_ops, t_bytes) * 1e3:.4f} max_abs_err={err:.3g}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": err}
+
+
+def phase_flash_kernel(dev) -> dict:
+    """The flash kernel at the serve phase's per-layer shape (the kernels
+    line's row), then at the other archs' (`FLASH_ARCH_SHAPES`, printed);
+    ``max_abs_err`` is the largest over all of them."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch("qwen3-1.7b").cfg
+    row = _flash_row(dev, 4, 1024, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.head_dim, label="qwen3-1.7b")
+    for label, B, S, H, KV, window, softcap in FLASH_ARCH_SHAPES:
+        other = _flash_row(dev, B, S, H, KV, 128, window=window,
+                           softcap=softcap, label=label)
+        row["max_abs_err"] = max(row["max_abs_err"], other["max_abs_err"])
+    return row
 
 
 def phase_bag_agg_parity(dev) -> dict:
@@ -2376,11 +2527,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mico-sigma", type=int, default=MICO_SIGMA,
                     help="σ of the full-size mico run (phase 5)")
     ap.add_argument("--phase", choices=["train-resume", "distributed",
-                                        "dist-rank"],
+                                        "dist-rank", "serve-archs"],
                     help="run this phase alone (the smoke runs train-resume "
                          "so, in a child process of its own, and each rank "
                          "of the distributed phase as dist-rank, the CLI's "
-                         "flags after --)")
+                         "flags after --; serve-archs: phase 6b and the "
+                         "flash kernel's rows of phase 9)")
     argv = sys.argv[1:] if argv is None else list(argv)
     cli_flags = argv[argv.index("--") + 1:] if "--" in argv else []
     argv = argv[:argv.index("--")] if "--" in argv else argv
@@ -2402,6 +2554,13 @@ def main(argv=None) -> int:
         phase_build()
         phase_distributed(OUT, args.mico_sigma)
         return 0
+    if args.phase == "serve-archs":
+        phase_build()
+        phase_card()
+        for arch, n_layers, replay in SERVE_ARCHS:
+            phase_serve_arch(torch.device("cuda"), arch, n_layers, replay)
+        phase_flash_kernel(torch.device("cuda"))
+        return 0
 
     dev = torch.device("cuda")
     t0 = time.monotonic()
@@ -2417,6 +2576,8 @@ def main(argv=None) -> int:
     launches, auto, auto_wall = phase_auto(OUT, args.mico_sigma, batched)
     phase_sampled(OUT, args.mico_sigma, batched)
     flash_launches = phase_serve(OUT)
+    for arch, n_layers, replay in SERVE_ARCHS:
+        flash_launches += phase_serve_arch(dev, arch, n_layers, replay)
     bag_launches, bag = phase_recsys(dev)
     agg_launches, agg, gnn = phase_gnn(dev)
     aggt_launches, aggt = phase_train_gnn(dev, gnn)

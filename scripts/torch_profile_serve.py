@@ -1,10 +1,12 @@
 """Where one serving request batch's time goes, on the card.
 
     PYTHONPATH=src python scripts/torch_profile_serve.py [--arch qwen3-1.7b] \\
-        [--batch 4] [--prompt-len 1024] [--decode-steps 8] [--trace PATH]
+        [--layers N] [--batch 4] [--prompt-len 1024] [--decode-steps 8] \\
+        [--trace PATH]
 
 Builds the model at full width from ``--seed`` (as ``repro_torch.launch.serve``
-does), warms up one prefill and one decode step, then profiles with
+does; ``--layers`` cuts its depth, as ``chip_smoke.py`` serves mixtral-8x7b
+at 16 of its 32 layers), warms up one prefill and one decode step, then profiles with
 ``torch.profiler`` (CPU + CUDA activities), separately:
 
   * one prefill (``transformer_apply`` + the last-position argmax);
@@ -20,6 +22,7 @@ number of kernel launches; then the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -60,6 +63,8 @@ def _report(name: str, prof, wall: float, top: int) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs("lm"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers (default: all)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--decode-steps", type=int, default=8)
@@ -73,6 +78,8 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     cfg = get_arch(args.arch).cfg
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = transformer_init(cfg, torch.Generator(device=dev)
                              .manual_seed(args.seed), device=dev)
     B, P = args.batch, args.prompt_len

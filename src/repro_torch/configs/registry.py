@@ -10,14 +10,15 @@ from typing import List, Optional
 # arch id → (module, family)
 _ARCH_MODULES = {
     "qwen3-1.7b": (".qwen3_1_7b", "lm"),
+    "minitron-4b": (".minitron_4b", "lm"),
+    "gemma2-27b": (".gemma2_27b", "lm"),
+    "qwen3-moe-30b-a3b": (".qwen3_moe_30b_a3b", "lm"),
+    "mixtral-8x7b": (".mixtral_8x7b", "lm"),
     "dlrm-rm2": (".dlrm_rm2", "recsys"),
     "graphsage-reddit": (".graphsage_reddit", "gnn"),
 }
-# the reference's other archs, waiting for their layers or configs
-_NOT_PORTED = (
-    "minitron-4b", "gemma2-27b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
-    "schnet", "nequip", "graphcast",
-)
+# the reference's other archs, waiting for their layers
+_NOT_PORTED = ("schnet", "nequip", "graphcast")
 
 
 def list_archs(family: Optional[str] = None) -> List[str]:

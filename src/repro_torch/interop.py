@@ -162,8 +162,14 @@ def _transformer_entries(cfg: TransformerConfig):
         if cfg.qk_norm:
             out += [(pre + f"attn.{n}.scale", base + ("attn", n, "scale"),
                      step, False) for n in ("q_norm", "k_norm")]
-        out += [(pre + f"ffn.{n}.weight", base + ("ffn", n, "kernel"), step,
-                 True) for n in ("wi", "wg", "wo")]
+        if cfg.n_experts:
+            out += [(pre + "moe.router", base + ("moe", "router", "kernel"),
+                     step, False)]
+            out += [(pre + f"moe.{n}", base + ("moe", n), step, False)
+                    for n in ("wi", "wg", "wo")]
+        else:
+            out += [(pre + f"ffn.{n}.weight", base + ("ffn", n, "kernel"),
+                     step, True) for n in ("wi", "wg", "wo")]
     return out
 
 
@@ -247,10 +253,12 @@ def transformer_params_from_numpy(tree, cfg: TransformerConfig,
     ``tree`` is the reference's ``transformer_init`` pytree with numpy
     leaves.  The leading scan axis is unstacked into one block per layer,
     ``(local, global)`` pairs into consecutive layers; each dense kernel
-    (in, out) becomes the port's ``weight`` (out, in).  A serving model
-    rounds the dense weights to bf16, as every use rounds them, and the
-    embedding to ``cfg.dtype``; with ``train`` they stay the reference's
-    f32 masters.  Norm scales are f32 either way.
+    (in, out) becomes the port's ``weight`` (out, in); a MoE layer's
+    ``router`` (D, E) and experts ``wi``, ``wg``, ``wo`` keep the
+    reference's layout.  A serving model rounds the dense weights to bf16,
+    as every use rounds them, and the embedding and experts to
+    ``cfg.dtype``; with ``train`` they stay the reference's f32 masters.
+    Norm scales and the router are f32 either way.
     """
     return _load(Transformer(cfg, device=device), tree, train)
 

@@ -8,8 +8,9 @@ The port's counterpart of ``examples/serve_lm.py``, in the same order:
 
   1. prefill the prompts with `transformer_apply`, which also fills the KV
      cache, and take the last-position logits (time to first token);
-  2. replay the first ``--replay-len`` prompt tokens (default: all) into a
-     fresh cache through `transformer_decode`, one token at a time, and
+  2. replay the first ``--replay-len`` prompt tokens (default: all, and
+     for a MoE arch at most the prefill's expert capacity, see below) into
+     a fresh cache through `transformer_decode`, one token at a time, and
      compare the replay's last logits with the prefill's at that position:
      on the card that holds the flash-attention kernel's path against the
      plain decode path (the reference's ``test_decode_matches_forward``
@@ -20,6 +21,17 @@ The port's counterpart of ``examples/serve_lm.py``, in the same order:
 The example fills the cache by the replay itself; here the prefill fills
 it, as a server does, so the replay is only a check and may be shorter
 than the prompt (an eager decode step costs the same at any position).
+
+A MoE layer keeps at most ``C = capacity(moe_cfg, P)`` assignments an
+expert in a row of P tokens and drops the rest; a decode step (one token,
+``top_k <= 8 <= C``) never drops.  The dispatch ranks an expert's
+assignments in token order, so a token at position t < C is never dropped,
+and attention is causal: the prefill's logits at a position below C
+depend on no dropped assignment, and only there does the replay check the
+same computation.  So for a MoE arch the replay defaults to ``min(P, C)``
+tokens and a longer one raises; the run reports ``moe_capacity`` (C) and
+``moe_dropped``, the assignments the timed prefill dropped over all
+layers.
 
 Weights are random, drawn from ``--seed`` with a generator on the run's
 device (``transformer_init``); the prompts are drawn from the same seed with
@@ -42,6 +54,7 @@ from repro_torch.configs.registry import get_arch, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro_torch.models.common import count_params
+from repro_torch.models.moe import capacity
 from repro_torch.models.transformer import (
     Transformer,
     init_decode_cache,
@@ -58,7 +71,13 @@ from repro_torch.models.transformer import (
 # two are two attention algorithms that round differently, which the
 # reference bounds by the logit scale (test_chunked_equals_dense_end_to_end):
 # max|replay − prefill| ≤ GAP_SCALE · max|prefill| + GAP_FLOOR.  Both are
-# reported; `prompt_gap_ok` is the bound that holds on every device.
+# reported; `prompt_gap_ok` is the bound that holds on every device.  With a
+# final softcap (gemma2's 30) both are taken on the logits before it: the
+# cap is 1-Lipschitz, so it never widens the gap, but it caps the scale the
+# bound is relative to (at gemma2-27b's width random weights give
+# pre-cap logits in the thousands, and the two roundings of 46 layers
+# differ by a few units there, as qwen3's uncapped ones do); the capped
+# logits' gap is reported beside it.
 GAP_ATOL = 0.15
 GAP_RTOL = 0.1
 GAP_SCALE = 0.02
@@ -90,11 +109,19 @@ def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
     cfg = model.cfg
     dev = prompts.device
     B, P = prompts.shape
-    R = P if replay_len is None else replay_len
+    C = None if cfg.moe_cfg is None else capacity(cfg.moe_cfg, P)
+    R_max = P if C is None else min(P, C)
+    R = R_max if replay_len is None else replay_len
     if B < 1 or P < 1 or gen_len < 1 or not 1 <= R <= P:
         raise ValueError(f"need batch, prompt length and gen_len >= 1 and "
                          f"1 <= replay_len <= prompt length, got {B}, {P}, "
                          f"{gen_len}, {R}")
+    if R > R_max:
+        raise ValueError(
+            f"replay_len {R} > the prefill's expert capacity {C}: the "
+            f"prefill drops assignments of tokens at positions >= {C}, "
+            f"which decode never drops, so the replay would check another "
+            f"computation")
     max_seq = P + gen_len
     for _ in range(warmup):
         warm = init_decode_cache(cfg, B, max_seq, device=dev)
@@ -105,18 +132,33 @@ def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
+    # the final norm's output: the logits before a final softcap
+    hidden = {}
+    hook = None if cfg.final_softcap is None else \
+        model.ln_final.register_forward_hook(
+            lambda mod, args, out: hidden.__setitem__("x", out))
+
+    def uncapped(capped, row):
+        if hook is None:
+            return capped
+        return torch.einsum("bd,vd->bv", hidden["x"][:, row],
+                            model.embed.to(cfg.dtype)).float()
+
     # 1. prefill (fills the cache) → first token
     cache = init_decode_cache(cfg, B, max_seq, device=dev)
     launches0 = flash_attention_bhsd.launches
     t0 = time.perf_counter()
     logits, _ = transformer_apply(model, prompts, cache)
     last = logits[:, -1].float()
-    at_replay = logits[:, R - 1].float()
+    capped_at_replay = logits[:, R - 1].float()
     del logits
     next_tok = last.argmax(-1)
     _sync(dev)
     ttft = time.perf_counter() - t0
     prefill_launches = flash_attention_bhsd.launches - launches0
+    dropped = None if C is None else int(sum(
+        blk.moe.last_dropped for blk in model.layers))
+    at_replay = uncapped(capped_at_replay, R - 1)
 
     # 2. replay R prompt tokens into a fresh cache, against the prefill
     replay_cache = init_decode_cache(cfg, B, R, device=dev)
@@ -127,7 +169,11 @@ def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
     _sync(dev)
     replay_s = time.perf_counter() - t0
     del replay_cache
-    replay = replay[:, 0].float()
+    capped_gap = float((replay[:, 0].float() - capped_at_replay).abs().max())
+    replay = uncapped(replay[:, 0].float(), 0)
+    if hook is not None:
+        hook.remove()
+        del hidden["x"]
     diff = (replay - at_replay).abs()
     allclose_ratio = (diff / (GAP_ATOL + GAP_RTOL * at_replay.abs())).max()
     gap_bound = GAP_SCALE * at_replay.abs().max() + GAP_FLOOR
@@ -154,6 +200,8 @@ def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
         "n_params": count_params(model),
         "ttft_s": ttft,
         "prefill_flash_launches": prefill_launches,
+        "moe_capacity": C,
+        "moe_dropped": dropped,
         "replay_s": replay_s,
         "decode_step_ms_median": float(np.median(ms)),
         "decode_step_ms_p90": float(np.percentile(ms, 90)),
@@ -161,6 +209,7 @@ def serve(model: Transformer, prompts: torch.Tensor, gen_len: int, *,
         "prompt_gap": float(diff.max()),
         "prompt_gap_bound": float(gap_bound),
         "prompt_gap_ok": bool(diff.max() <= gap_bound),
+        "prompt_gap_capped": None if hook is None else capped_gap,
         "prompt_allclose_ratio": float(allclose_ratio),
         "logits_finite": finite,
         "tokens": torch.stack(toks, dim=1).cpu().tolist(),
@@ -179,7 +228,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--replay-len", type=int, default=None,
                     help="prompt tokens replayed through decode to check "
-                         "the prefill (default: the whole prompt)")
+                         "the prefill (default: the whole prompt; for a "
+                         "MoE arch at most the prefill's expert capacity)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights and the prompts")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -210,7 +260,10 @@ def main(argv=None) -> int:
           f"prompt gap {res['prompt_gap']:.4g} (bound "
           f"{res['prompt_gap_bound']:.4g}; elementwise ratio "
           f"{res['prompt_allclose_ratio']:.3g}), peak "
-          f"{res['max_memory_allocated']} B", flush=True)
+          f"{res['max_memory_allocated']} B"
+          + ("" if res["moe_capacity"] is None else
+             f", MoE capacity {res['moe_capacity']}, dropped "
+             f"{res['moe_dropped']} assignments"), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(res, f, indent=1)

@@ -63,6 +63,9 @@ class Attention(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         for lin in (self.wq, self.wk, self.wv, self.wo):
             lin.reset_parameters(generator)   # wo: 1/sqrt(h·hd), its fan-in
+        if self.cfg.qk_norm:
+            self.q_norm.reset_parameters()
+            self.k_norm.reset_parameters()
 
 
 def attention_init(cfg: AttentionConfig, generator: torch.Generator, *,

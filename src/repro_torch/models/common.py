@@ -26,9 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "RMSNorm", "for_serving", "dense_apply", "rmsnorm_apply",
-           "embed_apply", "rotary_embedding", "apply_rope", "softcap",
-           "count_params", "normal_"]
+__all__ = ["Dense", "RMSNorm", "for_serving", "round_for_serving",
+           "dense_apply", "rmsnorm_apply", "embed_apply", "rotary_embedding",
+           "apply_rope", "softcap", "silu", "count_params", "normal_"]
 
 
 def normal_(t: torch.Tensor, scale: float, generator: torch.Generator
@@ -42,15 +42,21 @@ def normal_(t: torch.Tensor, scale: float, generator: torch.Generator
     return t
 
 
+def round_for_serving(mod: nn.Module) -> None:
+    """Round the parameters that ``mod`` itself names in its
+    ``serve_dtype`` (not its children's) to that dtype, in place."""
+    with torch.no_grad():
+        for name, dtype in getattr(mod, "serve_dtype", {}).items():
+            param = getattr(mod, name)
+            param.data = param.data.to(dtype)
+
+
 def for_serving(model: nn.Module) -> nn.Module:
     """Make a built model a serving one, in place, and return it: each
     parameter that a module names in its ``serve_dtype`` (dense weights,
     embeddings) is rounded to that dtype, and every parameter is frozen."""
-    with torch.no_grad():
-        for mod in model.modules():
-            for name, dtype in getattr(mod, "serve_dtype", {}).items():
-                param = getattr(mod, name)
-                param.data = param.data.to(dtype)
+    for mod in model.modules():
+        round_for_serving(mod)
     for param in model.parameters():
         param.requires_grad_(False)
     return model
@@ -80,6 +86,11 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim, device=device,
                                              dtype=torch.float32))
+
+    def reset_parameters(self) -> None:
+        """Scales 1, as built (for a module materialised by ``to_empty``)."""
+        with torch.no_grad():
+            self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm_apply(self.scale, x)
@@ -135,6 +146,13 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: ``x · 1/(1 + e^−x)``
+    in x's dtype, each step rounded (``F.silu`` rounds once, which moves a
+    third of bf16 outputs by one unit in the last place)."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def count_params(module: nn.Module) -> int:

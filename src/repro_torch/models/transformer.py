@@ -3,8 +3,10 @@
 The reference scans over stacked layer parameters; here the layers are an
 ``nn.ModuleList`` walked by a Python loop, flat in execution order
 (``local, global, local, …`` for alternating stacks, which the reference
-scans as pairs).  Dense FFN (``silu(g)·h``) only: ``n_experts > 0`` raises
-until ``models/moe.py`` is ported (ROADMAP).
+scans as pairs).  A block's FFN is dense (``silu(g)·h``) or, with
+``n_experts > 0``, the Mixture-of-Experts layer (``moe.py``); the forward
+returns the layers' aux losses summed in layer order, as the reference's
+scan carries them.
 
 `TransformerConfig` has the reference's fields minus ``use_flash``: which
 attention runs follows the device (see ``attention.py``).  ``remat`` and
@@ -16,7 +18,9 @@ without recomputation).
 A training model (`transformer_init` with ``train``) keeps the
 reference's f32 masters and casts them to ``cfg.dtype`` at each use, as
 the reference does; a serving model (`for_serving`) stores its dense
-weights and embedding rounded once, frozen.  `transformer_apply` and `lm_loss` run under autograd; serving
+weights, experts and embedding rounded once, frozen, and is built one
+layer at a time (drawn in f32, rounded, the f32 copy freed), so that its
+peak is the rounded weights plus one layer in f32.  `transformer_apply` and `lm_loss` run under autograd; serving
 enters ``torch.inference_mode()`` at its own call sites.
 """
 from __future__ import annotations
@@ -36,7 +40,17 @@ from .attention import (
     mha_decode,
     mha_train,
 )
-from .common import Dense, RMSNorm, embed_apply, for_serving, normal_, softcap
+from .common import (
+    Dense,
+    RMSNorm,
+    embed_apply,
+    for_serving,
+    normal_,
+    round_for_serving,
+    silu,
+    softcap,
+)
+from .moe import MoE, MoEConfig
 
 __all__ = ["TransformerConfig", "Transformer", "transformer_init",
            "transformer_apply", "lm_loss", "init_decode_cache",
@@ -53,7 +67,7 @@ class TransformerConfig:
     n_kv_heads: int
     head_dim: int
     d_ff: int                          # dense-FFN hidden (ignored if MoE)
-    # --- MoE (n_experts == 0 → dense; MoE is not ported yet) ---
+    # --- MoE (n_experts == 0 → dense) ---
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
@@ -85,6 +99,13 @@ class TransformerConfig:
             logit_softcap=self.attn_softcap,
             window=win,
         )
+
+    @property
+    def moe_cfg(self) -> Optional[MoEConfig]:
+        if self.n_experts == 0:
+            return None
+        return MoEConfig(self.d_model, self.moe_d_ff, self.n_experts,
+                         self.top_k, capacity_factor=self.moe_capacity_factor)
 
     @property
     def layers_per_step(self) -> int:
@@ -121,13 +142,6 @@ class TransformerConfig:
         return full - inactive
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference computes it: ``x · 1/(1 + e^−x)``
-    in x's dtype, each step rounded (``F.silu`` rounds once, which moves a
-    third of bf16 outputs by one unit in the last place)."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 class FFN(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
@@ -138,26 +152,50 @@ class FFN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.wo(silu(self.wg(x)) * self.wi(x))
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lin in (self.wi, self.wg, self.wo):
+            lin.reset_parameters(generator)
+
 
 class Block(nn.Module):
+    """Attention, then ``ffn`` (dense) or ``moe`` (``n_experts > 0``)."""
+
     def __init__(self, cfg: TransformerConfig, *, local: bool, device=None):
         super().__init__()
         self.ln_attn = RMSNorm(cfg.d_model, device=device)
         self.ln_ffn = RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg.attn_cfg(local=local), device=device)
-        self.ffn = FFN(cfg, device=device)
+        if cfg.moe_cfg is not None:
+            self.moe = MoE(cfg.moe_cfg, dtype=cfg.dtype, device=device)
+        else:
+            self.ffn = FFN(cfg, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ln_attn.reset_parameters()
+        self.ln_ffn.reset_parameters()
+        self.attn.reset_parameters(generator)
+        (self.moe if hasattr(self, "moe") else self.ffn).reset_parameters(
+            generator)
+
+    def _mlp(self, x) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The FFN of ln_ffn(x) and its aux loss (None for a dense FFN)."""
+        h = self.ln_ffn(x)
+        if hasattr(self, "moe"):
+            return self.moe(h)
+        return self.ffn(h), None
 
     def forward(self, x, positions, cfg: TransformerConfig,
                 cache: Optional[Cache] = None):
         x = x + mha_train(self.attn, self.ln_attn(x), positions,
                           impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk, cache=cache)
-        return x + self.ffn(self.ln_ffn(x))
+        f, aux = self._mlp(x)
+        return x + f, aux
 
     def decode(self, x, cache: Cache, position):
         a, cache = mha_decode(self.attn, cache, self.ln_attn(x), position)
         x = x + a
-        return x + self.ffn(self.ln_ffn(x)), cache
+        return x + self._mlp(x)[0], cache
 
 
 class Transformer(nn.Module):
@@ -167,10 +205,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not "
-                "ported yet (models/moe.py; see ROADMAP.md)")
         self.cfg = cfg
         self.serve_dtype = {"embed": cfg.dtype}
         self.embed = nn.Parameter(
@@ -183,12 +217,11 @@ class Transformer(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's init distributions: embedding N(0, 1), dense
-        N(0, 1/fan_in), norm scales 1."""
+        N(0, 1/fan_in), experts as ``moe.MoE``'s, norm scales 1."""
         normal_(self.embed, 1.0, generator)
         for blk in self.layers:
-            blk.attn.reset_parameters(generator)
-            for lin in (blk.ffn.wi, blk.ffn.wg, blk.ffn.wo):
-                lin.reset_parameters(generator)
+            blk.reset_parameters(generator)
+        self.ln_final.reset_parameters()
 
 
 def transformer_init(cfg: TransformerConfig, generator: torch.Generator, *,
@@ -196,10 +229,29 @@ def transformer_init(cfg: TransformerConfig, generator: torch.Generator, *,
     """Random weights from ``generator`` (on ``device``'s type): f32
     trainable masters with ``train``, else `for_serving`.  The draws differ
     from ``jax.random``'s; tests carry the reference's weights over with
-    ``repro_torch.interop.transformer_params_from_numpy``."""
-    model = Transformer(cfg, device=device)
-    model.reset_parameters(generator)
-    return model if train else for_serving(model)
+    ``repro_torch.interop.transformer_params_from_numpy``.
+
+    A serving model is built on the meta device and materialised one
+    module at a time in `reset_parameters`'s order (the same draws, so it
+    equals ``for_serving`` of the training model): each is drawn in f32
+    and rounded before the next is allocated."""
+    if train:
+        model = Transformer(cfg, device=device)
+        model.reset_parameters(generator)
+        return model
+    if device is None:
+        device = torch.get_default_device()
+    model = Transformer(cfg, device="meta")
+    model.to_empty(device=device, recurse=False)          # the embedding
+    normal_(model.embed, 1.0, generator)
+    round_for_serving(model)
+    for blk in model.layers:
+        blk.to_empty(device=device)
+        blk.reset_parameters(generator)
+        for_serving(blk)
+    model.ln_final.to_empty(device=device)
+    model.ln_final.reset_parameters()
+    return for_serving(model)
 
 
 def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -227,9 +279,11 @@ def transformer_apply(model: Transformer, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = _embed(model, tokens)
     caches = [None] * len(model.layers) if cache is None else cache
-    for blk, layer_cache in zip(model.layers, caches):
-        x = blk(x, positions, model.cfg, layer_cache)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for blk, layer_cache in zip(model.layers, caches):
+        x, a = blk(x, positions, model.cfg, layer_cache)
+        if a is not None:
+            aux = aux + a
     return _logits(model, x), aux
 
 

@@ -101,9 +101,9 @@ def load_session(checkpoint_dir, cfg: MiningConfig, *, device,
 
     An explicit ``step`` is strict: its defects propagate.  A
     `SessionMismatch` is never fallen past either — an older step of the
-    same directory would mismatch identically.  Nor is a distributed
-    in-flight cursor (`NotImplementedError`): no plane here can continue
-    it.
+    same directory would mismatch identically.  A distributed in-flight
+    cursor (a `SuperBlockState`) decodes like any other and the
+    distributed plane continues it, at any world size.
 
     Returns None when the directory holds no (healthy) committed snapshot.
     """

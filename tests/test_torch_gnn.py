@@ -178,7 +178,7 @@ def test_segment_pool_and_losses_match_reference():
 def _sage_pair(reduced=True, seed=1):
     j_arch, t_arch = j_sage_cfg.ARCH, get_arch("graphsage-reddit")
     jcfg, init, jloss = j_arch._build("minibatch_lg", reduced)
-    params = init(jax.random.key(seed))
+    params = jax.jit(init)(jax.random.key(seed))
     tcfg = t_arch.config("minibatch_lg", reduced)
     want = dataclasses.asdict(jcfg)
     assert want.pop("graph_level") is False   # node-level: the port's only kind

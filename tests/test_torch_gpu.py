@@ -512,6 +512,47 @@ def test_reduced_serve_cuda_matches_cpu(cuda):
     assert res_cuda["tokens"][0][0] == got[0, -1].argmax().item()
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b",
+                                  "gemma2-27b", "minitron-4b"])
+def test_reduced_arch_serve_cuda_matches_cpu(cuda, arch):
+    """The other LM archs' reduced models on the card against the CPU: a
+    MoE layer routing the same input to the same slots and repeating its
+    bytes on a second launch, a serve run (one flash launch a layer per
+    prefill, the prefill held to its own decode), and, for minitron, the
+    same logits within the bf16 bound.  The whole models' logits are not
+    held to that bound across devices for the others: the card's flash
+    attention rounds otherwise than the CPU's dense path, so a MoE router
+    can send a token near a tie to another expert, and gemma2's final
+    softcap (30) caps the scale the bound is relative to (an H100 run
+    failed it at qwen3-moe's and gemma2's reduced configs)."""
+    cfg = get_arch(arch).reduced_cfg
+    cpu_model = transformer_init(cfg, torch.Generator().manual_seed(0))
+    cuda_model = copy.deepcopy(cpu_model).to(cuda)
+    prompts = t_serve.make_prompts(cfg.vocab, 4, 64, seed=0, device="cpu")
+    want, _ = transformer_apply(cpu_model, prompts)
+    got, aux = transformer_apply(cuda_model, prompts.to(cuda))
+    got, want = got.float().cpu(), want.float()
+    assert torch.isfinite(got).all()
+    if cfg.moe_cfg is None and cfg.final_softcap is None:
+        assert (got - want).abs().max() <= 0.02 * want.abs().max() + 0.05
+    if cfg.moe_cfg is not None:
+        x = torch.as_tensor(np.random.default_rng(1).normal(
+            size=(4, 64, cfg.d_model)), dtype=torch.bfloat16)
+        moe_cpu, moe_cuda = cpu_model.layers[0].moe, cuda_model.layers[0].moe
+        r_cpu, r_cuda = moe_cpu.route(x), moe_cuda.route(x.to(cuda))
+        for f in ("idx", "counts", "tok_of_slot", "slots"):
+            assert torch.equal(getattr(r_cuda, f).cpu(), getattr(r_cpu, f)), f
+        (y1, a1), (y2, _) = moe_cuda(x.to(cuda)), moe_cuda(x.to(cuda))
+        assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+        # the same routing: the aux loss within f32 summation order
+        assert float(a1) == pytest.approx(float(moe_cpu(x)[1]), rel=1e-5)
+        assert torch.isfinite(aux) and float(aux) > 0
+    res = t_serve.serve(cuda_model, prompts.to(cuda), 4)
+    assert res["logits_finite"] and res["prompt_gap_ok"]
+    assert res["prefill_flash_launches"] == cfg.n_layers
+    assert (res["moe_capacity"] is None) == (cfg.moe_cfg is None)
+
+
 @pytest.mark.parametrize("case", BAG_CASES, ids=[c[0] for c in BAG_CASES])
 def test_embedding_bag_matches_plain(cuda, case):
     # f32 / bf16, sum / mean, H 1 (exact) and 4 with pads, T 1 and 26,

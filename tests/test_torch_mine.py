@@ -173,7 +173,7 @@ def test_cuda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("execution", ["distributed"])
-def test_unported_planes_raise(tmp_path, execution):
+def test_distributed_cli_equals_reference(tmp_path, execution):
     """The plane that raised until it was ported: the CLI's
     ``--execution distributed`` without torchrun's environment (a mesh of
     one) writes the reference CLI's ``--json`` at one device, minus wall

@@ -195,7 +195,7 @@ def test_plan_cases_cover_every_decision():
             "derived-cap"} <= seen, seen
 
 
-def test_distributed_still_raises():
+def test_distributed_gating_equals_reference():
     """The reference's ``test_distributed_gating`` on the port (the plane
     raised here until it was ported): auto picks distributed only with
     metric mis_luby, more than one device, a pinned super-block schedule

@@ -146,7 +146,8 @@ def test_embedding_bag_rejects_other_devices():
 
 def _reduced_model(seed=0):
     cfg = j_recsys.REDUCED
-    params = j_dlrm.dlrm_init(jax.random.key(seed), cfg)
+    params = jax.jit(j_dlrm.dlrm_init, static_argnums=1)(
+        jax.random.key(seed), cfg)
     tree = jax.tree_util.tree_map(np.asarray, params)
     return params, interop.dlrm_params_from_numpy(tree, t_recsys.REDUCED)
 

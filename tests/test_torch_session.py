@@ -318,7 +318,7 @@ def test_codec_equals_reference(case, metric):
             assert rep["7"]["emb"].shape == (0, 2)
 
 
-def test_distributed_cursor_raises():
+def test_distributed_cursor_round_trips_through_both_codecs():
     """The distributed plane's in-flight cursor (decoding it raised until
     the plane was ported) round-trips through both codecs: equal extras
     and leaves, the reference's codec decodes the port's snapshot and the

@@ -3,7 +3,8 @@
 Weights are the reference's own (its ``*_init`` with a JAX key), carried
 into the port as f32 masters by ``repro_torch.interop``
 (``train=True``); inputs come from numpy seeds.  The reference runs once a
-module (module-scoped fixtures).  Tolerances:
+session (`shared_result` fixtures); its losses and gradients are compiled
+by `_exact`.  Tolerances:
 
   * the kernels' plain versions under autograd (flash attention, the
     embedding bag, the gather-aggregate) against ``jax.grad`` of the
@@ -15,7 +16,11 @@ module (module-scoped fixtures).  Tolerances:
     1e-3 relative; every gradient within 0.05·max|g| of the reference's,
     leaf by leaf (both run the forward in bf16, which rounds in other
     places in the two frameworks: the repo's logit-scale bound, here on
-    the gradients; the largest seen is 0.031·max|g|, a qk-norm scale);
+    the gradients).  The reference's loss and gradients are compiled with
+    XLA's ``xla_allow_excess_precision`` off, so that every bf16 op
+    rounds as written: its loss then equals the port's, and the largest
+    gradient gap is 0.011·max|g| (0.031, a qk-norm scale, against the
+    reference run op by op, whose scanned stack still fuses);
   * DLRM reduced (1 000-row tables, batch 32 × 26 tables, so ids repeat):
     the loss within 1e-6 relative (the forward is bit-exact); every
     gradient within 0.02·max|g| + 1e-6 (bf16 products; the reference's
@@ -72,7 +77,7 @@ from repro_torch.models.dlrm import dlrm_loss
 from repro_torch.models.transformer import lm_loss
 from repro_torch.runtime import faults
 from repro_torch.testing.parity import agg_inputs, bag_inputs
-from repro_torch.testing.shared import shared_result
+from repro_torch.testing.shared import SharedParts
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.step import trainable_params
 
@@ -99,6 +104,15 @@ def _port_grads(model, loss):
 
 def _j(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _exact(fn, *args, static_argnums=()):
+    """``fn(*args)`` compiled once with XLA's ``xla_allow_excess_precision``
+    off (an option of this compile only): every bf16 op rounds as the
+    source writes it, as when the reference runs op by op."""
+    compiled = jax.jit(fn, static_argnums=static_argnums).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return compiled(*[a for i, a in enumerate(args) if i not in static_argnums])
 
 
 # ---------------------------------------------------------------------------
@@ -217,30 +231,43 @@ def test_bag_weights_take_no_grad():
 LM_B, LM_S = 2, 16
 
 
+def _jnp(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
 @pytest.fixture(scope="module")
 def lm_ref(tmp_path_factory):
-    """Once for the test session (`shared_result`)."""
-    return shared_result(tmp_path_factory, "torch-train-lm_ref",
-                         lambda _: _lm_ref())
+    """Each part once for the test session (`SharedParts`)."""
+    return SharedParts(tmp_path_factory, "torch-train-lm_ref", {
+        "base": (("tree", "tokens", "targets", "opt"), _lm_base),
+        "grads": (("loss", "grads"), _lm_grads),
+        "step": (("step_loss", "step_state"), _lm_step)})
 
 
-def _lm_ref():
-    jcfg = j_qwen3.REDUCED
-    params = j_transformer_init(jax.random.key(0), jcfg)
+def _lm_base(_):
+    params = jax.jit(j_transformer_init, static_argnums=1)(
+        jax.random.key(0), j_qwen3.REDUCED)
     toks = np.random.default_rng(0).integers(
-        0, jcfg.vocab, (LM_B, LM_S + 1)).astype(np.int32)
-    tokens, targets = toks[:, :-1], toks[:, 1:]
-    loss, grads = jax.value_and_grad(j_lm_loss)(
-        params, jcfg, jnp.asarray(tokens), jnp.asarray(targets))
+        0, j_qwen3.REDUCED.vocab, (LM_B, LM_S + 1)).astype(np.int32)
+    return dict(tree=_j(params), tokens=toks[:, :-1], targets=toks[:, 1:],
+                opt=j_opt.AdamWConfig(warmup_steps=1, total_steps=10))
+
+
+def _lm_grads(ref):
+    loss, grads = _exact(jax.value_and_grad(j_lm_loss), _jnp(ref["tree"]),
+                         j_qwen3.REDUCED, jnp.asarray(ref["tokens"]),
+                         jnp.asarray(ref["targets"]), static_argnums=(1,))
+    return dict(loss=float(loss), grads=_j(grads))
+
+
+def _lm_step(ref):
     # one train step from the same state (the reference's own step fn)
-    opt = j_opt.AdamWConfig(warmup_steps=1, total_steps=10)
-    j_arch = dataclasses.replace(j_qwen3.ARCH, opt=opt)
-    loss1, _, state1 = j_arch._train_step(jcfg)(
-        params, j_opt.adamw_init(params), jnp.asarray(tokens),
-        jnp.asarray(targets))
-    return dict(tree=_j(params), tokens=tokens, targets=targets,
-                loss=float(loss), grads=_j(grads), opt=opt,
-                step_loss=float(loss1), step_state=state1)
+    params = _jnp(ref["tree"])
+    j_arch = dataclasses.replace(j_qwen3.ARCH, opt=ref["opt"])
+    loss1, _, state1 = j_arch._train_step(j_qwen3.REDUCED)(
+        params, j_opt.adamw_init(params), jnp.asarray(ref["tokens"]),
+        jnp.asarray(ref["targets"]))
+    return dict(step_loss=float(loss1), step_state=state1)
 
 
 def _lm_model(ref):
@@ -317,23 +344,42 @@ def test_adamw_state_round_trips_through_interop(lm_ref):
 
 @pytest.fixture(scope="module")
 def dlrm_ref(tmp_path_factory):
-    """Once for the test session (`shared_result`)."""
-    return shared_result(tmp_path_factory, "torch-train-dlrm_ref",
-                         lambda _: _dlrm_ref())
+    """Each part once for the test session (`SharedParts`)."""
+    return SharedParts(tmp_path_factory, "torch-train-dlrm_ref", {
+        "base": (("tree", "x"), _dlrm_base),
+        "grads": (("loss", "grads"), _dlrm_grads),
+        "step": (("step_loss", "step_state"), _dlrm_step)})
 
 
-def _dlrm_ref():
-    cfg = j_recsys.REDUCED
-    params = j_dlrm.dlrm_init(jax.random.key(3), cfg)
-    j_arch = j_recsys.RecsysArch("dlrm-rm2", j_recsys.CONFIG, cfg)
+_J_DLRM_ARCH = j_recsys.RecsysArch("dlrm-rm2", j_recsys.CONFIG,
+                                   j_recsys.REDUCED)
+
+
+def _dlrm_base(_):
+    params = jax.jit(j_dlrm.dlrm_init, static_argnums=1)(
+        jax.random.key(3), j_recsys.REDUCED)
     x = {k: np.asarray(v) for k, v in
-         j_arch.reduced_inputs("train_batch", None).items()}
-    args = [jnp.asarray(x[k]) for k in ("dense", "sparse_idx", "labels")]
-    loss, grads = jax.value_and_grad(j_dlrm.dlrm_loss)(params, cfg, *args)
-    loss1, _, state1 = j_arch.step_fn("train_batch", reduced=True)(
-        params, j_opt.adamw_init(params), *args)
-    return dict(tree=_j(params), x=x, loss=float(loss), grads=_j(grads),
-                step_loss=float(loss1), step_state=state1)
+         _J_DLRM_ARCH.reduced_inputs("train_batch", None).items()}
+    return dict(tree=_j(params), x=x)
+
+
+def _dlrm_args(ref):
+    return [jnp.asarray(ref["x"][k]) for k in ("dense", "sparse_idx",
+                                              "labels")]
+
+
+def _dlrm_grads(ref):
+    loss, grads = _exact(jax.value_and_grad(j_dlrm.dlrm_loss),
+                         _jnp(ref["tree"]), j_recsys.REDUCED,
+                         *_dlrm_args(ref), static_argnums=(1,))
+    return dict(loss=float(loss), grads=_j(grads))
+
+
+def _dlrm_step(ref):
+    params = _jnp(ref["tree"])
+    loss1, _, state1 = _J_DLRM_ARCH.step_fn("train_batch", reduced=True)(
+        params, j_opt.adamw_init(params), *_dlrm_args(ref))
+    return dict(step_loss=float(loss1), step_state=state1)
 
 
 def test_dlrm_batch_has_repeated_ids(dlrm_ref):
@@ -376,20 +422,34 @@ def test_dlrm_train_step_matches_reference(dlrm_ref):
 
 @pytest.fixture(scope="module")
 def sage_ref(tmp_path_factory):
-    """Once for the test session (`shared_result`)."""
-    return shared_result(tmp_path_factory, "torch-train-sage_ref",
-                         lambda _: _sage_ref())
+    """Each part once for the test session (`SharedParts`)."""
+    return SharedParts(tmp_path_factory, "torch-train-sage_ref", {
+        "base": (("tree",), _sage_base),
+        "grads": (("loss", "grads"), _sage_grads),
+        "step": (("step_loss", "step_state"), _sage_step)})
 
 
-def _sage_ref():
-    jcfg, init, jloss = j_sage_cfg.ARCH._build("minibatch_lg", True)
-    params = init(jax.random.key(1))
-    gb = j_sage_cfg.ARCH.reduced_inputs("minibatch_lg", None)["batch"]
-    loss, grads = jax.value_and_grad(jloss)(params, gb)
+def _sage_base(_):
+    init = j_sage_cfg.ARCH._build("minibatch_lg", True)[1]
+    return dict(tree=_j(jax.jit(init)(jax.random.key(1))))
+
+
+def _sage_batch():
+    return j_sage_cfg.ARCH.reduced_inputs("minibatch_lg", None)["batch"]
+
+
+def _sage_grads(ref):
+    jloss = j_sage_cfg.ARCH._build("minibatch_lg", True)[2]
+    loss, grads = _exact(jax.value_and_grad(jloss), _jnp(ref["tree"]),
+                         _sage_batch())
+    return dict(loss=float(loss), grads=_j(grads))
+
+
+def _sage_step(ref):
+    params = _jnp(ref["tree"])
     loss1, _, state1 = j_sage_cfg.ARCH.reduced_step_fn("minibatch_lg")(
-        params, j_opt.adamw_init(params), gb)
-    return dict(tree=_j(params), loss=float(loss), grads=_j(grads),
-                step_loss=float(loss1), step_state=state1)
+        params, j_opt.adamw_init(params), _sage_batch())
+    return dict(step_loss=float(loss1), step_state=state1)
 
 
 def _sage_model(ref):

@@ -3,7 +3,12 @@
 Weights are the reference's own (``transformer_init`` with a JAX key),
 carried into the port by ``repro_torch.interop.transformer_params_from_numpy``;
 tokens come from a numpy seed.  Geometry: the reference's ``TINY`` config
-(``tests/models/test_transformer.py``) and its variants.
+(``tests/models/test_transformer.py``) and its variants, ``moe`` with the
+reference's capacity factor 8.0 (no token dropped, so decode equals the
+forward), and the dense archs' ``REDUCED`` configs.  Each worker draws a
+config's reference weights once (`_j_params`) and runs the reference's
+decode step compiled once a config (`_j_decode`); its init is compiled
+too, one program instead of one per op.
 
 Tolerances:
   * building blocks on the same inputs: equal, or within f32 rounding
@@ -22,6 +27,7 @@ Tolerances:
     decode-vs-forward tolerance, atol 0.15, rtol 0.1.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import gemma2_27b as j_gemma2
+from repro.configs import minitron_4b as j_minitron
 from repro.models import common as jcommon
 from repro.models.transformer import (
     TransformerConfig as JConfig, init_decode_cache as j_cache,
@@ -36,6 +44,8 @@ from repro.models.transformer import (
     transformer_decode as j_decode, transformer_init as j_init,
 )
 
+from repro_torch.configs import gemma2_27b as t_gemma2
+from repro_torch.configs import minitron_4b as t_minitron
 from repro_torch.interop import (
     transformer_config_from, transformer_params_from_numpy,
 )
@@ -57,6 +67,8 @@ VARIANTS = {
         TINY, local_global=True, window=6, n_layers=4, attn_softcap=50.0,
         final_softcap=30.0),
     "window": dataclasses.replace(TINY, window=5),
+    "moe": dataclasses.replace(TINY, d_ff=0, n_experts=4, top_k=2,
+                               moe_d_ff=32, moe_capacity_factor=8.0),
 }
 DECODE_TOL = dict(atol=0.15, rtol=0.1)
 F32_TOL = dict(atol=1e-4, rtol=1e-5)
@@ -67,9 +79,17 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+@functools.lru_cache(maxsize=None)
+def _j_params(jcfg, seed):
+    return jax.jit(j_init, static_argnums=1)(jax.random.key(seed), jcfg)
+
+
+_j_decode = jax.jit(j_decode, static_argnums=1)
+
+
 def _pair(jcfg, seed=0):
     """The reference's parameters and the port's model holding them."""
-    params = j_init(jax.random.key(seed), jcfg)
+    params = _j_params(jcfg, seed)
     model = transformer_params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params),
         transformer_config_from(jcfg))
@@ -179,7 +199,7 @@ def test_transformer_apply_matches_reference(impl, dtype):
     _close_to_reference(got, want, dtype)
 
 
-@pytest.mark.parametrize("variant", ["dense", "gemma2ish", "window"])
+@pytest.mark.parametrize("variant", ["dense", "gemma2ish", "window", "moe"])
 def test_decode_matches_forward_and_reference(variant):
     """Token-by-token decode with the KV cache == the full forward, and
     == the reference's decode."""
@@ -196,8 +216,8 @@ def test_decode_matches_forward_and_reference(variant):
             model, cache, torch.as_tensor(toks[:, i:i + 1]).long(),
             torch.full((B,), i))
         got.append(_np(logits[:, 0]))
-        jl, jc = j_decode(params, jcfg, jc, jnp.asarray(toks[:, i:i + 1]),
-                          jnp.full((B,), i, jnp.int32))
+        jl, jc = _j_decode(params, jcfg, jc, jnp.asarray(toks[:, i:i + 1]),
+                           jnp.full((B,), i, jnp.int32))
         want.append(_np(jl[:, 0]))
     got, want = np.stack(got, 1), np.stack(want, 1)
     np.testing.assert_allclose(got, _np(full), **DECODE_TOL)
@@ -206,7 +226,7 @@ def test_decode_matches_forward_and_reference(variant):
         assert min(c["k"].shape[1] for c in cache) == jcfg.window
 
 
-@pytest.mark.parametrize("variant", ["dense", "gemma2ish", "window"])
+@pytest.mark.parametrize("variant", ["dense", "gemma2ish", "window", "moe"])
 def test_prefill_fills_cache_as_decode_does(variant):
     """A prefill given a cache leaves it as S decode steps would (rolling
     buffers: the last ``window`` positions), and decoding goes on from it
@@ -267,7 +287,7 @@ def test_lm_loss_matches_reference(dtype):
     assert got == pytest.approx(want, rel=rtol)
 
 
-@pytest.mark.parametrize("variant", ["dense", "gemma2ish"])
+@pytest.mark.parametrize("variant", ["dense", "gemma2ish", "moe"])
 def test_count_params_matches_reference(variant):
     jcfg = VARIANTS[variant]
     params, model = _pair(jcfg)
@@ -277,8 +297,61 @@ def test_count_params_matches_reference(variant):
     assert abs(actual - model.cfg.param_count()) / actual < 0.05
 
 
-def test_moe_raises_until_ported():
-    cfg = transformer_config_from(dataclasses.replace(
-        TINY, d_ff=0, n_experts=4, top_k=2, moe_d_ff=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(cfg)
+def test_moe_blocks_hold_moe_in_place_of_ffn():
+    cfg = transformer_config_from(VARIANTS["moe"])
+    model = Transformer(cfg)
+    for blk in model.layers:
+        assert hasattr(blk, "moe") and not hasattr(blk, "ffn")
+        assert blk.moe.cfg == cfg.moe_cfg
+    assert not hasattr(transformer_init(transformer_config_from(TINY),
+                                        torch.Generator()).layers[0], "moe")
+    # a serving model rounds the experts, never the f32 router
+    served = transformer_init(cfg, torch.Generator().manual_seed(0))
+    moe = served.layers[0].moe
+    assert moe.router.dtype == torch.float32 and moe.wi.dtype == cfg.dtype
+
+
+@pytest.mark.parametrize("variant", ["dense", "gemma2ish", "moe"])
+def test_serving_init_equals_for_serving_of_training_init(variant):
+    """The serving model, built layer by layer from the meta device, holds
+    the same draws as the training model rounded by `for_serving`."""
+    cfg = transformer_config_from(dataclasses.replace(VARIANTS[variant],
+                                                      qk_norm=True))
+    served = transformer_init(cfg, torch.Generator().manual_seed(5))
+    want = tcommon.for_serving(transformer_init(
+        cfg, torch.Generator().manual_seed(5), train=True))
+    got = dict(served.named_parameters())
+    assert list(got) == [n for n, _ in want.named_parameters()]
+    for name, p in want.named_parameters():
+        assert got[name].device.type == "cpu" and not got[name].requires_grad
+        assert got[name].dtype == p.dtype and torch.equal(got[name], p), name
+
+
+DENSE_ARCHS = {"gemma2-27b": (j_gemma2, t_gemma2),
+               "minitron-4b": (j_minitron, t_minitron)}
+
+
+@pytest.mark.parametrize("arch", list(DENSE_ARCHS))
+def test_dense_arch_reduced_logits_match_reference(arch):
+    """The reference compiled with XLA's ``xla_allow_excess_precision`` off
+    (an option of that one compile), so that its scanned stack rounds
+    every bf16 op as written, as the port does.  With the default its
+    fusions skip roundings: at gemma2-27b's ``REDUCED`` its logits then
+    differ from its own op-by-op (eager, unrolled) run's by 0.656, past the
+    bound (0.650); the port is 0.125 (one bf16 unit at |logit| 16–32) from
+    either the op-by-op run or the exact compile."""
+    j_mod, t_mod = DENSE_ARCHS[arch]
+    jcfg = j_mod.REDUCED
+    params = jax.jit(j_init, static_argnums=1)(jax.random.key(0), jcfg)
+    model = transformer_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), t_mod.REDUCED)
+    toks = _toks(jcfg.vocab, 2, 24)     # longer than the local window (16)
+    want, want_aux = jax.jit(j_apply, static_argnums=1).lower(
+        params, jcfg, jnp.asarray(toks)).compile(
+        compiler_options={"xla_allow_excess_precision": False})(
+        params, jnp.asarray(toks))
+    got, aux = transformer_apply(model, torch.as_tensor(toks).long())
+    assert got.shape == (2, 24, jcfg.vocab)
+    _close_to_reference(got, want)
+    assert float(aux) == float(want_aux) == 0.0
+    assert tcommon.count_params(model) == jcommon.count_params(params)
