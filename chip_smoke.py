@@ -114,6 +114,22 @@ line):
                CSR's build; a SHA-256 of the output) and held there against
                autograd of the plain aggregate (f32 copies), launched
                twice (identical bytes);
+  8b. gnn-archs — every other GNN training run the port has
+               (`GNN_ARCH_RUNS`): schnet, nequip and graphcast on
+               full_graph_sm and molecule (the arch's full-size ``inputs``)
+               and minibatch_lg (phase 8's sampler, blocks 0–3, positions
+               for the whole graph from the seed), graphsage-reddit on
+               full_graph_sm and molecule (its graph-level head), each at
+               full width from ``torch.Generator`` seed 0 (graphcast at
+               full_graph_sm cut to 4 of its 16 layers: `GNN_ARCH_LAYERS`),
+               `GNN_ARCH_STEPS` train steps with counts zeroed just before
+               and read just after (AdamW once a parameter a step;
+               GraphSAGE two aggregates and one transpose a step); every
+               loss finite, the held batch's loss falling by more than
+               the spread of its readings; GraphSAGE's node logits equal to the same forward with the plain
+               aggregate; at molecule the card against a CPU copy
+               (`parity.gnn_card_against_cpu`; graphcast at 2 layers);
+               prints losses, median step ms and peak memory;
   9. kernels — mining kernels vs plain versions again on real blocks of the
                mico graph at the main path's shapes (the frontier's hub
                block at level 2 also by pass, with its random loads and
@@ -195,7 +211,8 @@ line):
                behaviour: world size 2 checks the ranks' arithmetic and
                the collectives' semantics, not their speed;
  13. the kernels JSON line (all nine kernels; the backward kernels' and
-     AdamW's launches from the training phases), then the last line:
+     AdamW's launches from the training phases, phase 8b's added to the
+     aggregate's, the transpose's and AdamW's), then the last line:
      {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
@@ -2522,17 +2539,185 @@ def phase_train_gnn(dev, gnn: dict) -> tuple:
     return launches, row
 
 
+# the GNN archs (phase 8b, gnn-archs): every (arch, shape) the port trains
+# beyond train-gnn's graphsage-reddit minibatch_lg, at full width
+GNN_ARCH_RUNS = tuple((a, s) for a in ("schnet", "nequip", "graphcast")
+                      for s in ("full_graph_sm", "molecule", "minibatch_lg")
+                      ) + (("graphsage-reddit", "full_graph_sm"),
+                           ("graphsage-reddit", "molecule"))
+GNN_ARCH_STEPS = 4
+# depth cuts: graphcast's processor sums edge states with no normalisation
+# (the reference's model), so at the R-MAT stand-in's in-degree-274 hub its
+# node states grow with every layer at full_graph_sm: at 16 layers the f32
+# loss is inf, and 4 layers keep the loss and the gradient norm finite, in
+# the reference's arithmetic as in the port's (tests/test_torch_gnn_archs
+# .py::test_graphcast_full_graph_sm_overflows_as_reference; ROADMAP Queue 3)
+GNN_ARCH_LAYERS = {("graphcast", "full_graph_sm"): 4}
+# the molecule card-against-CPU check runs graphcast at 2 of its 16 layers
+# (the CPU's bf16 products at 16 layers cost minutes)
+GRAPHCAST_CPU_LAYERS = 2
+
+
+def phase_gnn_archs(dev, gnn: dict) -> dict:
+    """The GNN archs trained at full width: for each of `GNN_ARCH_RUNS`,
+    the model from ``torch.Generator`` seed 0 (f32 masters), GNN_ARCH_STEPS
+    train steps (loss + grads + AdamW) on the shape's batch (``inputs``:
+    the one batch of full_graph_sm or molecule) or on blocks 0.. of
+    phase 8's sampler (minibatch_lg, positions drawn for the whole graph),
+    counts zeroed just before the steps and read just after; every loss
+    finite, the held batch's (block 0's) loss, read twice before the
+    steps and twice after, falling by more than the larger spread of a
+    pair of readings; GraphSAGE's logits equal to the same forward with the
+    plain aggregate; at molecule the card against the CPU
+    (`parity.gnn_card_against_cpu`; graphcast at GRAPHCAST_CPU_LAYERS
+    layers).
+    Returns the launches by kernel over the runs' steps."""
+    import copy
+    import statistics
+    from unittest import mock
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.sampler import block_graph_batch
+    from repro_torch.kernels.gather_aggregate.ref import gather_aggregate_ref
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.models.gnn.graphcast import graphcast_init
+    from repro_torch.testing.parity import AGG_TOL, gnn_card_against_cpu
+    from repro_torch.train.step import init_opt_state
+
+    sampler, feats, labels = gnn["sampler"], gnn["feats"], gnn["labels"]
+    t0 = time.monotonic()
+    blocks = [sampler.sample(s) for s in range(GNN_ARCH_STEPS)]
+    pos = get_arch("schnet").node_pos(feats.shape[0], seed=SAGE_SEED,
+                                      device=dev)
+    _log(f"gnn-archs: blocks 0-{GNN_ARCH_STEPS - 1} sampled and the graph's "
+         f"positions drawn in {time.monotonic() - t0:.2f} s")
+    total = {"gather_aggregate": 0, "gather_aggregate_t": 0, "adamw": 0}
+    for name, shape in GNN_ARCH_RUNS:
+        arch = get_arch(name)
+        if shape == "minibatch_lg":
+            gbs = [block_graph_batch(b, feats, labels,
+                                     pos if arch.needs_positions else None)
+                   for b in blocks]
+        else:
+            gbs = [arch.inputs(shape, seed=SAGE_SEED, device=dev)] * \
+                GNN_ARCH_STEPS
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        layers = GNN_ARCH_LAYERS.get((name, shape))
+        if layers is None:
+            model = arch.init(shape, gen, device=dev, train=True)
+        else:
+            model = graphcast_init(dataclasses.replace(
+                arch.config(shape), n_layers=layers), gen, device=dev,
+                train=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        n_leaves = len(list(model.parameters()))
+        state = init_opt_state(model)
+        loss_fn, step = arch.loss_fn(shape), arch.step_fn(shape)
+
+        def held_loss():
+            with torch.no_grad():
+                return float(loss_fn(model, gbs[0]))
+
+        before = (held_loss(), held_loss())
+        _zero_counts()
+        losses, step_ms = [], []
+        for gb in gbs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, model, state = step(model, state, gb)
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        after = (held_loss(), held_loss())
+        launches = {k: counts[k] for k in total}
+        sage = name == "graphsage-reddit"
+        want = {"gather_aggregate": 2 * GNN_ARCH_STEPS if sage else 0,
+                "gather_aggregate_t": GNN_ARCH_STEPS if sage else 0,
+                "adamw": GNN_ARCH_STEPS * n_leaves}
+        gb0 = gbs[0]
+        cut = "" if layers is None else f" (cut to {layers} layers)"
+        _log(f"gnn-archs: {name}{cut} {shape}: {int(gb0.node_mask.sum())} "
+             f"nodes, {int(gb0.edge_mask.sum())} edges (padded "
+             f"{gb0.x.shape[0]} / {gb0.edge_src.shape[0]}), {n_params} "
+             f"parameters in {n_leaves} leaves; losses={losses}; held loss "
+             f"{before[0]!r} (again {before[1]!r}) → {after[0]!r} (again "
+             f"{after[1]!r}); "
+             f"step_ms={[round(m, 3) for m in step_ms]} (median after the "
+             f"first {statistics.median(step_ms[1:]):.3f}); "
+             f"max_memory_allocated={peak}; launches={launches}")
+        if not all(math.isfinite(v) for v in losses + [*before, *after]):
+            raise AssertionError(f"gnn-archs: {name} {shape}: a non-finite "
+                                 f"loss: {losses}, {before}, {after}")
+        # the held loss's two readings differ where atomics sum in bf16:
+        # the fall must exceed the larger spread of a pair of readings
+        spread = max(abs(before[0] - before[1]), abs(after[0] - after[1]))
+        if not min(before) - max(after) > spread:
+            raise AssertionError(f"gnn-archs: {name} {shape}: the held "
+                                 f"loss did not fall by more than its "
+                                 f"spread {spread}: {before} → {after}")
+        if launches != want:
+            raise AssertionError(f"gnn-archs: {name} {shape}: launches "
+                                 f"{launches}, expected {want}")
+        for k in total:
+            total[k] += launches[k]
+        if sage:
+            # the head on every node's state (molecule pools them after:
+            # the pool's atomics add in no fixed order, so two forwards'
+            # pooled logits may differ by a rounding; held to AGG_TOL)
+            nodes = copy.copy(model)
+            nodes.cfg = dataclasses.replace(model.cfg, graph_level=False)
+            with torch.inference_mode():
+                got = [graphsage.sage_apply(m, gb0).float()
+                       for m in (nodes, model)]
+                with mock.patch.object(graphsage, "gather_aggregate",
+                                       gather_aggregate_ref):
+                    plain = [graphsage.sage_apply(m, gb0).float()
+                             for m in (nodes, model)]
+            if not torch.equal(got[0], plain[0]):
+                raise AssertionError(
+                    f"gnn-archs: sage {shape} logits differ from the plain "
+                    f"aggregate's by {float((got[0] - plain[0]).abs().max())}")
+            tol = AGG_TOL[torch.bfloat16]
+            torch.testing.assert_close(got[1], plain[1], atol=tol, rtol=tol)
+            _log(f"gnn-archs: graphsage-reddit {shape} node logits == the "
+                 f"same forward with the plain aggregate (exact); outputs "
+                 f"max abs err {float((got[1] - plain[1]).abs().max()):.3g}")
+        elif shape == "molecule":
+            check = model
+            if name == "graphcast":
+                cfg = dataclasses.replace(arch.config(shape),
+                                          n_layers=GRAPHCAST_CPU_LAYERS)
+                check = graphcast_init(cfg, torch.Generator(device=dev)
+                                       .manual_seed(0), device=dev,
+                                       train=True)
+            t = time.monotonic()
+            msg = gnn_card_against_cpu(arch, shape, check, gb0)
+            depth = (f"{GRAPHCAST_CPU_LAYERS} layers, "
+                     if name == "graphcast" else "")
+            _log(f"gnn-archs: {name} molecule on the card against the CPU "
+                 f"({depth}{time.monotonic() - t:.1f} s): {msg}")
+            del check
+        del model, state, gbs, gb0
+        torch.cuda.empty_cache()
+    _log(f"gnn-archs: launches over the runs' steps {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mico-sigma", type=int, default=MICO_SIGMA,
                     help="σ of the full-size mico run (phase 5)")
     ap.add_argument("--phase", choices=["train-resume", "distributed",
-                                        "dist-rank", "serve-archs"],
+                                        "dist-rank", "serve-archs",
+                                        "gnn-archs"],
                     help="run this phase alone (the smoke runs train-resume "
                          "so, in a child process of its own, and each rank "
                          "of the distributed phase as dist-rank, the CLI's "
                          "flags after --; serve-archs: phase 6b and the "
-                         "flash kernel's rows of phase 9)")
+                         "flash kernel's rows of phase 9; gnn-archs: phase "
+                         "8's graph and forward, then phase 8b)")
     argv = sys.argv[1:] if argv is None else list(argv)
     cli_flags = argv[argv.index("--") + 1:] if "--" in argv else []
     argv = argv[:argv.index("--")] if "--" in argv else argv
@@ -2561,6 +2746,17 @@ def main(argv=None) -> int:
             phase_serve_arch(torch.device("cuda"), arch, n_layers, replay)
         phase_flash_kernel(torch.device("cuda"))
         return 0
+    if args.phase == "gnn-archs":
+        phase_build()
+        phase_card()
+        t0 = time.monotonic()
+        gnn = phase_gnn(torch.device("cuda"))[2]
+        t1 = time.monotonic()
+        phase_gnn_archs(torch.device("cuda"), gnn)
+        _log(f"gnn-archs alone: phase 8 {t1 - t0:.1f} s, phase 8b "
+             f"{time.monotonic() - t1:.1f} s")
+        phase_card()
+        return 0
 
     dev = torch.device("cuda")
     t0 = time.monotonic()
@@ -2581,6 +2777,9 @@ def main(argv=None) -> int:
     bag_launches, bag = phase_recsys(dev)
     agg_launches, agg, gnn = phase_gnn(dev)
     aggt_launches, aggt = phase_train_gnn(dev, gnn)
+    t_archs = time.monotonic()
+    arch_launches = phase_gnn_archs(dev, gnn)
+    _log(f"gnn-archs: {time.monotonic() - t_archs:.1f} s")
     del gnn
     kernels = phase_kernels(dev, launches, worst, args.mico_sigma)
     flash = phase_flash_kernel(dev)
@@ -2605,7 +2804,8 @@ def main(argv=None) -> int:
     for name, n, row, replaces in (
             ("embedding_bag", bag_launches, bag,
              "src/repro/kernels/embedding_bag/kernel.py:20"),
-            ("gather_aggregate", agg_launches, agg,
+            ("gather_aggregate",
+             agg_launches + arch_launches["gather_aggregate"], agg,
              "src/repro/kernels/gather_aggregate/kernel.py:24")):
         kernels.append({
             "name": name, "route": "cuda",
@@ -2623,9 +2823,10 @@ def main(argv=None) -> int:
              flash_bwd, "src/repro/kernels/flash_attention/kernel.py:27"),
             ("embedding_bag_bwd", bag_bwd_launches["embedding_bag_bwd"],
              bag_bwd, "src/repro/kernels/embedding_bag/kernel.py:20"),
-            ("gather_aggregate_t", aggt_launches["gather_aggregate_t"], aggt,
+            ("gather_aggregate_t", aggt_launches["gather_aggregate_t"]
+             + arch_launches["gather_aggregate_t"], aggt,
              "src/repro/kernels/gather_aggregate/kernel.py:24"),
-            ("adamw", lm_launches["adamw"], adamw,
+            ("adamw", lm_launches["adamw"] + arch_launches["adamw"], adamw,
              "src/repro/train/optimizer.py:59")):
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,7 +1,9 @@
 """Where one train step's time goes, on the card, for each family.
 
     PYTHONPATH=src python scripts/torch_profile_train.py [--seed 0] \\
-        [--lm-layers 28] [--top 12] [--trace-dir DIR] [--only lm dlrm gnn]
+        [--lm-layers 28] [--top 12] [--trace-dir DIR] [--only lm dlrm gnn] \\
+        [--arch graphsage-reddit schnet nequip graphcast] \\
+        [--shape minibatch_lg|full_graph_sm|molecule] [--layers N]
 
 Builds, as ``chip_smoke.py``'s training phases do, each model with f32
 masters (``train=True``) and its AdamW state, warms its train step up
@@ -11,15 +13,19 @@ activities):
   * lm: qwen3-1.7b at full width (``--lm-layers`` of its 28), batch 4 ×
     1 024 tokens of the Zipf stream;
   * dlrm: dlrm-rm2 at full width, one train_batch of 65 536;
-  * gnn: graphsage-reddit minibatch_lg, block 0 of the sampler on the
-    Reddit-sized R-MAT stand-in.
+  * gnn: each ``--arch`` (default graphsage-reddit) at ``--shape``
+    (default minibatch_lg: block 0 of the sampler on the Reddit-sized
+    R-MAT stand-in, built once for all the archs, positions from the
+    seed; full_graph_sm and molecule: the arch's ``inputs``), at full
+    width, ``--layers`` cutting graphcast's depth.
 
 For each it prints the step's wall time, the device time by kernel
 (``key_averages``), the device time of each port kernel (summed over its
 source's kernels, ``kernels._build.kernel_source``), of cuBLAS / CUTLASS
-products and of everything else, the busy share (kernel time / wall; one
-stream) and the number of launches; then the card's name and power
-limit.
+products, of indexing (``index_add_`` and the other scatters, gathers and
+their backward) and of everything else (glue), the busy share (kernel
+time / wall; one stream) and the number of launches; then the card's name
+and power limit.
 """
 from __future__ import annotations
 
@@ -34,13 +40,17 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.gnn_arch import PORTED_SHAPES
+from repro_torch.configs.registry import get_arch, list_archs
 from repro_torch.data.sampler import block_graph_batch
 from repro_torch.data.synthetic import token_stream
 from repro_torch.kernels._build import kernel_source
+from repro_torch.models.gnn.graphcast import graphcast_init
 from repro_torch.train.step import init_opt_state
 
-GEMM_WORDS = ("gemm", "cutlass", "xmma", "sm90_", "cublas")
+GEMM_WORDS = ("gemm", "gemv", "cutlass", "xmma", "sm90_", "cublas",
+              "nvjet")
+INDEX_WORDS = ("index", "scatter", "gather")
 
 
 def _report(name: str, prof, wall: float, top: int) -> None:
@@ -54,8 +64,13 @@ def _report(name: str, prof, wall: float, top: int) -> None:
     for us, count, key in rows:
         src = kernel_source(key)
         if src is None:
-            src = ("cuBLAS/CUTLASS products"
-                   if any(w in key.lower() for w in GEMM_WORDS) else "other")
+            low = key.lower()
+            if any(w in low for w in GEMM_WORDS):
+                src = "cuBLAS/CUTLASS products"
+            elif any(w in low for w in INDEX_WORDS):
+                src = "indexing (index_add_, scatters, gathers)"
+            else:
+                src = "other (glue)"
         t, c = groups.get(src, (0.0, 0))
         groups[src] = (t + us, c + count)
     print(f"{name}: wall {wall * 1e3:.3f} ms, device time "
@@ -117,21 +132,42 @@ def profile_dlrm(dev, args) -> None:
 
 
 def profile_gnn(dev, args) -> None:
-    arch = get_arch("graphsage-reddit")
-    shape = "minibatch_lg"
-    t0 = time.perf_counter()
-    g = arch.graph(shape, seed=args.seed)
-    blk = arch.sampler(g, shape, seed=args.seed).sample(0)
-    feats, labels = arch.node_data(shape, g.n, seed=args.seed, device=dev)
-    gb = block_graph_batch(blk, feats, labels)
-    print(f"graph {g.n} vertices, {g.n_edges} directed edges; block 0 "
-          f"built and sampled in {time.perf_counter() - t0:.1f} s")
-    model = arch.init(shape, torch.Generator(device=dev).manual_seed(0),
-                      device=dev, train=True)
-    state = init_opt_state(model)
-    step = arch.step_fn(shape)
-    _profile("graphsage-reddit minibatch_lg train step",
-             lambda: step(model, state, gb), args.top, args.trace_dir)
+    shape = args.shape
+    block = None
+    if shape == "minibatch_lg":
+        sage = get_arch("graphsage-reddit")
+        t0 = time.perf_counter()
+        g = sage.graph(shape, seed=args.seed)
+        blk = sage.sampler(g, shape, seed=args.seed).sample(0)
+        feats, labels = sage.node_data(shape, g.n, seed=args.seed,
+                                       device=dev)
+        pos = sage.node_pos(g.n, seed=args.seed, device=dev)
+        block = (blk, feats, labels, pos)
+        print(f"graph {g.n} vertices, {g.n_edges} directed edges; block 0 "
+              f"built and sampled in {time.perf_counter() - t0:.1f} s")
+    for name in args.arch:
+        arch = get_arch(name)
+        if block is None:
+            gb = arch.inputs(shape, seed=args.seed, device=dev)
+        else:
+            blk, feats, labels, pos = block
+            gb = block_graph_batch(blk, feats, labels,
+                                   pos if arch.needs_positions else None)
+        cfg = arch.config(shape)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if args.layers and name == "graphcast":
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+            model = graphcast_init(cfg, gen, device=dev, train=True)
+        else:
+            model = arch.init(shape, gen, device=dev, train=True)
+        state = init_opt_state(model)
+        step = arch.step_fn(shape)
+        torch.cuda.reset_peak_memory_stats()
+        _profile(f"{name} {shape} train step ({cfg})",
+                 lambda: step(model, state, gb), args.top, args.trace_dir)
+        print(f"  max_memory_allocated {torch.cuda.max_memory_allocated()}")
+        del model, state, gb
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -143,6 +179,12 @@ def main(argv=None) -> int:
                     help="write each step's chrome trace here")
     ap.add_argument("--only", nargs="*", default=["lm", "dlrm", "gnn"],
                     choices=["lm", "dlrm", "gnn"])
+    ap.add_argument("--arch", nargs="+", default=["graphsage-reddit"],
+                    choices=list_archs("gnn"), help="gnn: the archs")
+    ap.add_argument("--shape", default="minibatch_lg",
+                    choices=list(PORTED_SHAPES), help="gnn: the shape")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="gnn: graphcast's depth (0: the config's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)

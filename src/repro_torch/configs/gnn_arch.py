@@ -6,13 +6,24 @@ shared by the GNN archs:
   ogb_products    2,449,029 nodes / 61,859,140 edges / d_feat 100 (full-batch)
   molecule        30 nodes / 64 edges × batch 128 (batched small graphs)
 
-The port runs minibatch_lg (one sampled block a step): its forward loss
-and its training step (loss + grad + AdamW with the arch's `AdamWConfig`,
-lr 1e-3, on a model built with ``train=True``); the other three shapes
-raise `NotImplementedError` (ROADMAP.md).  The minibatch_lg graph is an R-MAT
-stand-in with Reddit's vertex and directed edge counts (`graph`), its
-features and labels are drawn from a seed (`node_data`), and `sampler`
-cuts the blocks.
+Geometric models (SchNet, NequIP: ``needs_positions``) consume
+positions; every graph here is a synthetic stand-in built from a seed.
+The port runs full_graph_sm, minibatch_lg and molecule: the forward loss
+and the training step (loss + grad + AdamW with the arch's `AdamWConfig`,
+lr 1e-3, on a model built with ``train=True``), the reference's only step
+for a GNN cell; ogb_products raises `NotImplementedError` (ROADMAP.md: its
+edge states do not fit one card along the reference's path).
+
+  * full_graph_sm and molecule: `inputs` builds the shape's one batch on
+    the device — an undirected R-MAT graph with Cora's 2 708 vertices and
+    10 556 directed edges, or 128 connected molecules of 30 atoms and 64
+    bonds (a chain plus distinct random pairs, both directions) — with
+    features, positions and targets drawn from a seed, padded to `_pad`'s
+    sizes with the masks false on the padding;
+  * minibatch_lg: the graph is an R-MAT stand-in with Reddit's vertex and
+    directed edge counts (`graph`), its features and labels (`node_data`)
+    and positions (`node_pos`) are drawn from a seed, and `sampler` cuts
+    the blocks (``data.sampler.block_graph_batch``).
 """
 from __future__ import annotations
 
@@ -48,9 +59,15 @@ GNN_SHAPES: Dict[str, ShapeCell] = {
         n_nodes=30 * 128, n_edges=64 * 2 * 128, d_feat=16, n_out=1,
         graph_level=True, n_graphs=128)),
 }
-PORTED_SHAPES = ("minibatch_lg",)
+PORTED_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
 
-_REDUCED_META = dict(n_nodes=64, n_edges=256, d_feat=8, n_out=4, n_graphs=1)
+_REDUCED_META = dict(n_nodes=64, n_edges=256, d_feat=8, n_out=4,
+                     graph_level=False, n_graphs=1)
+
+# molecule: atoms and bonds of each of the shape's n_graphs molecules
+MOLECULE_ATOMS, MOLECULE_BONDS = 30, 64
+# node_pos draws from a stream of its own beside node_data's
+_POS_STREAM = 0x9E3779B9
 
 
 @dataclasses.dataclass
@@ -60,6 +77,7 @@ class GNNArch:
 
     arch_name: str
     model_builder: Callable
+    needs_positions: bool = False
     opt: AdamWConfig = dataclasses.field(
         default_factory=lambda: AdamWConfig(lr=1e-3))
     family: str = "gnn"
@@ -72,7 +90,12 @@ class GNNArch:
         return dict(GNN_SHAPES)
 
     def meta(self, shape: str, reduced: bool = False) -> dict:
-        return dict(_REDUCED_META) if reduced else GNN_SHAPES[shape].meta
+        if not reduced:
+            return GNN_SHAPES[shape].meta
+        meta = dict(_REDUCED_META)
+        if shape == "molecule":
+            meta.update(graph_level=True, n_graphs=4, n_out=1)
+        return meta
 
     @staticmethod
     def _ported(shape: str) -> None:
@@ -100,40 +123,115 @@ class GNNArch:
         """Nodes/edges padded to mesh-divisible sizes (masked anyway)."""
         return -(-n // mult) * mult
 
+    @staticmethod
+    def _targets_spec(meta: dict, N: int) -> TensorSpec:
+        if meta["graph_level"]:
+            return TensorSpec((meta["n_graphs"],), torch.float32)
+        return TensorSpec((N,), torch.float32 if meta["n_out"] == 1
+                          else torch.int32)
+
     def input_specs(self, shape: str, *, reduced: bool = False
                     ) -> Dict[str, TensorSpec]:
+        """The reference's ``_batch_specs`` (padded sizes), by field."""
         self._ported(shape)
         meta = self.meta(shape, reduced)
         N, E = self._pad(meta["n_nodes"]), self._pad(meta["n_edges"])
-        return {"x": TensorSpec((N, meta["d_feat"]), torch.float32),
-                "edge_src": TensorSpec((E,), torch.int32),
-                "edge_dst": TensorSpec((E,), torch.int32),
-                "edge_mask": TensorSpec((E,), torch.bool),
-                "node_mask": TensorSpec((N,), torch.bool),
-                "graph_ids": TensorSpec((N,), torch.int32),
-                "targets": TensorSpec((N,), torch.int32)}
+        specs = {"x": TensorSpec((N, meta["d_feat"]), torch.float32),
+                 "edge_src": TensorSpec((E,), torch.int32),
+                 "edge_dst": TensorSpec((E,), torch.int32),
+                 "edge_mask": TensorSpec((E,), torch.bool),
+                 "node_mask": TensorSpec((N,), torch.bool),
+                 "graph_ids": TensorSpec((N,), torch.int32),
+                 "targets": self._targets_spec(meta, N)}
+        if self.needs_positions:
+            specs["pos"] = TensorSpec((N, 3), torch.float32)
+        return specs
 
     def reduced_inputs(self, shape: str, device="cuda") -> GraphBatch:
-        """The reference's ``reduced_inputs`` batch, draw for draw, on
-        ``device``."""
+        """The reference's ``reduced_inputs`` batch, draw for draw (targets
+        first, positions last), on ``device``."""
         self._ported(shape)
         device = resolve_device(device)
         meta = self.meta(shape, reduced=True)
         r = np.random.default_rng(0)
         N, E = meta["n_nodes"], meta["n_edges"]
-        tgt = r.integers(0, meta["n_out"], N).astype(np.int32)
+        if meta["graph_level"]:
+            tgt = r.normal(size=(meta["n_graphs"],)).astype(np.float32)
+        elif meta["n_out"] == 1:
+            tgt = r.normal(size=(N,)).astype(np.float32)
+        else:
+            tgt = r.integers(0, meta["n_out"], N).astype(np.int32)
         x = r.normal(size=(N, meta["d_feat"])).astype(np.float32)
         src = r.integers(0, N, E).astype(np.int32)
         dst = r.integers(0, N, E).astype(np.int32)
         gids = np.sort(r.integers(0, meta["n_graphs"], N)).astype(np.int32)
+        pos = (r.normal(size=(N, 3)).astype(np.float32)
+               if self.needs_positions else None)
 
         def up(a):
-            return torch.as_tensor(a).to(device)
+            return None if a is None else torch.as_tensor(a).to(device)
 
         return GraphBatch(x=up(x), edge_src=up(src), edge_dst=up(dst),
                           edge_mask=up(np.ones(E, bool)),
                           node_mask=up(np.ones(N, bool)), graph_ids=up(gids),
-                          n_graphs=meta["n_graphs"], targets=up(tgt))
+                          n_graphs=meta["n_graphs"], targets=up(tgt),
+                          pos=up(pos))
+
+    def inputs(self, shape: str, *, seed: int = 0, device="cuda"
+               ) -> GraphBatch:
+        """The full-size batch of full_graph_sm or molecule on ``device``
+        (module docstring); minibatch_lg's come from `sampler`."""
+        self._ported(shape)
+        if shape == "minibatch_lg":
+            raise ValueError("minibatch_lg batches are sampled blocks: "
+                             "sampler(graph(...)) and "
+                             "data.sampler.block_graph_batch")
+        device = resolve_device(device)
+        meta = self.meta(shape)
+        if shape == "molecule":
+            src, dst = molecule_edges(meta["n_graphs"], seed=seed)
+            gids = np.repeat(np.arange(meta["n_graphs"], dtype=np.int32),
+                             MOLECULE_ATOMS)
+        else:
+            g = rmat_undirected_graph(meta["n_nodes"], meta["n_edges"],
+                                      seed=seed)
+            src = np.repeat(np.arange(g.n, dtype=np.int32),
+                            np.diff(g.out_indptr))
+            dst = g.out_indices.astype(np.int32)
+            gids = np.zeros(g.n, np.int32)
+        N, E = meta["n_nodes"], meta["n_edges"]
+        if src.size != E or gids.size != N:
+            raise AssertionError(f"{shape}: built {gids.size} nodes and "
+                                 f"{src.size} edges, not {N} and {E}")
+        Np, Ep = self._pad(N), self._pad(E)
+
+        def padded(a, n, fill=0):
+            out = torch.full((n,) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                             device=device)
+            out[:a.shape[0]] = a
+            return out
+
+        def up(a, n):
+            return padded(torch.as_tensor(a).to(device), n)
+
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn((N, meta["d_feat"]), generator=gen, device=device)
+        spec = self._targets_spec(meta, N)
+        if spec.dtype == torch.int32:
+            tgt = torch.randint(0, meta["n_out"], spec.shape, generator=gen,
+                                device=device, dtype=torch.int32)
+        else:
+            tgt = torch.randn(spec.shape, generator=gen, device=device)
+        pos = (torch.randn((N, 3), generator=gen, device=device)
+               if self.needs_positions else None)
+        ar = torch.arange
+        return GraphBatch(
+            x=padded(x, Np), edge_src=up(src, Ep), edge_dst=up(dst, Ep),
+            edge_mask=ar(Ep, device=device) < E,
+            node_mask=ar(Np, device=device) < N, graph_ids=up(gids, Np),
+            n_graphs=meta["n_graphs"],
+            targets=tgt if meta["graph_level"] else padded(tgt, Np),
+            pos=None if pos is None else padded(pos, Np))
 
     def graph(self, shape: str = "minibatch_lg", *, seed: int = 0,
               n_edges: Optional[int] = None) -> DataGraph:
@@ -156,6 +254,14 @@ class GNNArch:
                           dtype=torch.int32)
         return x, y
 
+    def node_pos(self, n: int, *, seed: int = 0, device="cuda"
+                 ) -> torch.Tensor:
+        """(n, 3) f32 normal positions, drawn on ``device`` from a stream of
+        their own for ``seed`` (not `node_data`'s)."""
+        device = resolve_device(device)
+        g = torch.Generator(device=device).manual_seed(seed + _POS_STREAM)
+        return torch.randn((n, 3), generator=g, device=device)
+
     def sampler(self, graph: DataGraph, shape: str = "minibatch_lg", *,
                 seed: int = 0) -> NeighborSampler:
         meta = self.meta(shape)
@@ -170,3 +276,26 @@ class GNNArch:
     def step_fn(self, shape: str, *, reduced: bool = False) -> Callable:
         """``step(model, opt_state, gb) → (loss, model, opt_state)``."""
         return make_train_step(self.loss_fn(shape, reduced=reduced), self.opt)
+
+
+def molecule_edges(n_graphs: int, *, seed: int = 0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(src, dst) int32 of ``n_graphs`` connected molecules, graph by graph:
+    each is a chain of its MOLECULE_ATOMS atoms plus the other bonds (up to
+    MOLECULE_BONDS) as distinct atom pairs drawn from ``seed``; its bonds
+    one way, then the same pairs the other way."""
+    atoms = MOLECULE_ATOMS
+    rng = np.random.default_rng(seed)
+    lo, hi = np.triu_indices(atoms, k=1)
+    chain = hi == lo + 1
+    others = np.flatnonzero(~chain)
+    extra = MOLECULE_BONDS - (atoms - 1)
+    src, dst = [], []
+    for g in range(n_graphs):
+        pick = np.concatenate([np.flatnonzero(chain), np.sort(
+            rng.choice(others, extra, replace=False))])
+        a, b = lo[pick] + g * atoms, hi[pick] + g * atoms
+        src += [a, b]
+        dst += [b, a]
+    return (np.concatenate(src).astype(np.int32),
+            np.concatenate(dst).astype(np.int32))

@@ -12,10 +12,11 @@ def _build(meta):
         n_layers=2,
         n_classes=max(meta["n_out"], 1),
         aggregator="mean",
+        graph_level=meta["graph_level"],
     )
     return cfg, (lambda generator, device="cuda", train=False: sage_init(
-        cfg, generator, device=resolve_device(device), train=train)), (
-        lambda model, gb: sage_loss(model, gb))
+        cfg, generator, device=resolve_device(device), train=train)), \
+        sage_loss
 
 
 ARCH = GNNArch("graphsage-reddit", _build)

@@ -1,7 +1,5 @@
-"""Arch registry: ``--arch <id>`` resolution for the port's launchers.
-
-Resolves the archs the port can run now; every other arch of the
-reference's registry raises `NotImplementedError` (ROADMAP.md)."""
+"""Arch registry: ``--arch <id>`` resolution for the port's launchers:
+every arch of the reference's registry."""
 from __future__ import annotations
 
 import importlib
@@ -16,9 +14,10 @@ _ARCH_MODULES = {
     "mixtral-8x7b": (".mixtral_8x7b", "lm"),
     "dlrm-rm2": (".dlrm_rm2", "recsys"),
     "graphsage-reddit": (".graphsage_reddit", "gnn"),
+    "schnet": (".schnet", "gnn"),
+    "nequip": (".nequip", "gnn"),
+    "graphcast": (".graphcast", "gnn"),
 }
-# the reference's other archs, waiting for their layers
-_NOT_PORTED = ("schnet", "nequip", "graphcast")
 
 
 def list_archs(family: Optional[str] = None) -> List[str]:
@@ -28,10 +27,6 @@ def list_archs(family: Optional[str] = None) -> List[str]:
 
 
 def get_arch(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; see ROADMAP.md (ported: "
-            f"{list_archs()})")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {list_archs()}")
     mod = importlib.import_module(_ARCH_MODULES[name][0], package=__package__)

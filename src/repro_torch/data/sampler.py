@@ -10,7 +10,7 @@ block into the model's `GraphBatch` on the features' device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,9 +121,11 @@ class NeighborSampler:
 
 
 def block_graph_batch(block: SampledBlock, features: torch.Tensor,
-                      labels: torch.Tensor) -> GraphBatch:
-    """The block as a `GraphBatch` on the features' device: x and targets
-    are the rows of the (n, F) features and (n,) labels at ``x_rows``."""
+                      labels: torch.Tensor,
+                      pos: Optional[torch.Tensor] = None) -> GraphBatch:
+    """The block as a `GraphBatch` on the features' device: x, targets and
+    (given the graph's (n, 3) ``pos``) positions are the rows of the (n, F)
+    features, (n,) labels and positions at ``x_rows``."""
     dev = features.device
 
     def up(a):
@@ -135,4 +137,5 @@ def block_graph_batch(block: SampledBlock, features: torch.Tensor,
         edge_dst=up(block.edge_dst), edge_mask=up(block.edge_mask),
         node_mask=up(block.node_mask),
         graph_ids=torch.zeros(rows.shape[0], dtype=torch.int32, device=dev),
-        n_graphs=1, targets=labels[rows])
+        n_graphs=1, targets=labels[rows],
+        pos=None if pos is None else pos[rows])

@@ -18,10 +18,11 @@ compares the port's outputs through them, one function per state type:
   * transformer weights — `transformer_params_from_numpy` builds the port's
     model from the reference's parameter pytree, and
     `transformer_config_from` its config from the reference's;
-  * DLRM and GraphSAGE weights — `dlrm_params_from_numpy`,
-    `sage_params_from_numpy` (each as frozen serving weights, or with
-    ``train=True`` as the reference's f32 masters), and back into the
-    reference's pytree: `params_to_numpy`;
+  * DLRM and GNN weights — `dlrm_params_from_numpy`,
+    `sage_params_from_numpy`, `schnet_params_from_numpy`,
+    `nequip_params_from_numpy`, `graphcast_params_from_numpy` (each as
+    frozen serving weights, or with ``train=True`` as the reference's f32
+    masters), and back into the reference's pytree: `params_to_numpy`;
   * optimizer state — `adamw_state_from_numpy` / `adamw_state_to_numpy`:
     the reference's ``AdamWState`` ↔ the port's, moments by parameter;
   * graph batches — `graph_batch_from_numpy` (from any object with the
@@ -40,7 +41,10 @@ from .core.plan import _TENSOR_FIELDS, PatternPlan, plan_from_numpy
 from .models.common import for_serving
 from .models.dlrm import DLRM, DLRMConfig
 from .models.gnn.common import MLP, GraphBatch
+from .models.gnn.graphcast import GraphCast, GraphCastConfig
 from .models.gnn.graphsage import SAGE, SAGEConfig
+from .models.gnn.nequip import NequIP, NequIPConfig
+from .models.gnn.schnet import SchNet, SchNetConfig
 from .models.transformer import Transformer, TransformerConfig
 from .train.optimizer import AdamWState
 
@@ -49,7 +53,9 @@ __all__ = ["data_graph_from_arrays", "plan_from_numpy", "plan_from_fields",
            "table_to_numpy", "super_block_state_from_numpy",
            "super_block_state_to_numpy", "transformer_config_from",
            "transformer_params_from_numpy", "dlrm_params_from_numpy",
-           "sage_params_from_numpy", "graph_batch_from_numpy",
+           "sage_params_from_numpy", "schnet_params_from_numpy",
+           "nequip_params_from_numpy", "graphcast_params_from_numpy",
+           "graph_batch_from_numpy",
            "param_entries", "params_to_numpy", "adamw_state_from_numpy",
            "adamw_state_to_numpy"]
 
@@ -192,6 +198,27 @@ def _sage_entries(cfg: SAGEConfig):
     return out + [("head.weight", ("head", "kernel"), None, True)]
 
 
+def _named_dense_entries(model):
+    """SchNet, NequIP and GraphCast: each parameter is a dense weight whose
+    module path is the reference's (``int0.filter.layers.1.weight`` →
+    ``int0/filter/l1/kernel``), transposed.  NequIP's ``self_v`` and
+    ``self_t`` too: the reference multiplies their (in, out) kernels in an
+    einsum over the input channel, the port its (out, in) weights over the
+    same channel (`models/gnn/nequip`)."""
+    out = []
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[-1] != "weight":
+            raise TypeError(f"{name}: not a dense weight")
+        path = []
+        for i, p in enumerate(parts[:-1]):
+            if p == "layers":
+                continue
+            path.append(f"l{p}" if i and parts[i - 1] == "layers" else p)
+        out.append((name, tuple(path) + ("kernel",), None, True))
+    return out
+
+
 def param_entries(model):
     """The reference-pytree entries of a port model's parameters."""
     if isinstance(model, Transformer):
@@ -200,6 +227,8 @@ def param_entries(model):
         return _dlrm_entries(model.cfg)
     if isinstance(model, SAGE):
         return _sage_entries(model.cfg)
+    if isinstance(model, (SchNet, NequIP, GraphCast)):
+        return _named_dense_entries(model)
     raise TypeError(f"no reference layout for {type(model).__name__}")
 
 
@@ -277,6 +306,27 @@ def sage_params_from_numpy(tree, cfg: SAGEConfig, device="cpu",
     """The port's GraphSAGE holding the reference's ``sage_init`` pytree
     (bf16 serving weights, or f32 masters with ``train``)."""
     return _load(SAGE(cfg, device=device), tree, train)
+
+
+def schnet_params_from_numpy(tree, cfg: SchNetConfig, device="cpu",
+                             train: bool = False) -> SchNet:
+    """The port's SchNet holding the reference's ``schnet_init`` pytree
+    (bf16 serving weights, or f32 masters with ``train``)."""
+    return _load(SchNet(cfg, device=device), tree, train)
+
+
+def nequip_params_from_numpy(tree, cfg: NequIPConfig, device="cpu",
+                             train: bool = False) -> NequIP:
+    """The port's NequIP holding the reference's ``nequip_init`` pytree
+    (f32 either way; frozen unless ``train``)."""
+    return _load(NequIP(cfg, device=device), tree, train)
+
+
+def graphcast_params_from_numpy(tree, cfg: GraphCastConfig, device="cpu",
+                                train: bool = False) -> GraphCast:
+    """The port's GraphCast holding the reference's ``graphcast_init``
+    pytree (bf16 serving weights, or f32 masters with ``train``)."""
+    return _load(GraphCast(cfg, device=device), tree, train)
 
 
 def params_to_numpy(model, template):

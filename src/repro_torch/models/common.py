@@ -64,13 +64,15 @@ def for_serving(model: nn.Module) -> nn.Module:
 
 class Dense(nn.Module):
     """``x @ W`` with W of shape (in, out) in the reference, stored here as
-    ``weight`` (out, in) in f32 (bf16 once `for_serving`)."""
+    ``weight`` (out, in) in f32; computed in ``dtype`` (the reference's
+    ``dense_apply(..., dtype=)``, bf16 by default), to which `for_serving`
+    rounds the weight."""
 
-    serve_dtype = {"weight": torch.bfloat16}
-
-    def __init__(self, in_dim: int, out_dim: int, *, device=None):
+    def __init__(self, in_dim: int, out_dim: int, *, device=None,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.in_dim, self.out_dim = in_dim, out_dim
+        self.in_dim, self.out_dim, self.dtype = in_dim, out_dim, dtype
+        self.serve_dtype = {"weight": dtype}
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, device=device,
                                                dtype=torch.float32))
 
@@ -78,7 +80,7 @@ class Dense(nn.Module):
         normal_(self.weight, 1.0 / math.sqrt(self.in_dim), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense_apply(self.weight, x)
+        return dense_apply(self.weight, x, dtype=self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -148,11 +150,30 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
 
 
+class _SiLU(torch.autograd.Function):
+    """``x · s`` with ``s = 1/(1 + e^−x)``; the gradient is the reference's
+    (``logistic``'s own derivative ``s·(1 − s)``): autograd of the forward
+    multiplies ``e^−x`` = inf by 0 below x ≈ −88 (f32; −89 in bf16) and
+    returns NaN, where ``jax.grad`` of ``jax.nn.silu`` returns 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as the reference computes it: ``x · 1/(1 + e^−x)``
     in x's dtype, each step rounded (``F.silu`` rounds once, which moves a
-    third of bf16 outputs by one unit in the last place)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    third of bf16 outputs by one unit in the last place); its gradient as
+    ``jax.grad``'s (`_SiLU`)."""
+    return _SiLU.apply(x)
 
 
 def count_params(module: nn.Module) -> int:

@@ -1,2 +1,2 @@
-"""Graph neural networks of the port (``repro.models.gnn``): so far
-GraphSAGE's forward on sampled blocks."""
+"""Graph neural networks of the port (``repro.models.gnn``): GraphSAGE,
+SchNet, NequIP and GraphCast, on padded graph batches."""

@@ -13,8 +13,11 @@ in f32 and rounds once to bf16, where the reference's bf16 scatter rounds
 after every add; the two agree within bf16 tolerance (f32 features agree
 to f32 rounding, ``tests/test_torch_gnn.py``).  Under autograd the
 aggregate's backward is the transpose kernel; only layer 1's input takes a
-gradient there (the features ``x`` take none).  `sage_init` builds f32
-masters for training (``train=True``) or frozen bf16 serving weights.
+gradient there (the features ``x`` take none).  With ``graph_level`` (the
+``molecule`` shape) the last layer's node states are mean-pooled per graph
+(`segment_pool`) before the ``head``, and the loss is the graph
+regression's.  `sage_init` builds f32 masters for training
+(``train=True``) or frozen bf16 serving weights.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ from torch import nn
 
 from ...kernels.gather_aggregate.ops import gather_aggregate, in_neighbor_table
 from ..common import Dense, for_serving
-from .common import GraphBatch, node_class_loss
+from .common import (
+    GraphBatch, graph_regression_loss, node_class_loss, segment_pool,
+)
 
 __all__ = ["SAGEConfig", "SAGE", "sage_init", "sage_apply", "sage_loss"]
 
@@ -37,6 +42,7 @@ class SAGEConfig:
     n_layers: int = 2
     n_classes: int = 41
     aggregator: str = "mean"
+    graph_level: bool = False   # pool to per-graph output (molecule cells)
 
 
 class SAGE(nn.Module):
@@ -86,8 +92,13 @@ def sage_apply(model: SAGE, gb: GraphBatch) -> torch.Tensor:
         h32 = h.float()
         norm = torch.linalg.vector_norm(h32, dim=-1, keepdim=True)
         h = (h32 / norm.clamp(min=1e-6)).to(h.dtype)
+    if cfg.graph_level:
+        h = segment_pool(h, gb.graph_ids, gb.node_mask, gb.n_graphs)
     return model.head(h)
 
 
 def sage_loss(model: SAGE, gb: GraphBatch) -> torch.Tensor:
-    return node_class_loss(sage_apply(model, gb), gb.targets, gb.node_mask)
+    out = sage_apply(model, gb)
+    if model.cfg.graph_level:
+        return graph_regression_loss(out[:, 0], gb.targets)
+    return node_class_loss(out, gb.targets, gb.node_mask)

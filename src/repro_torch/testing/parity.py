@@ -11,10 +11,13 @@ and the aggregate's transposes) are held to autograd of the plain
 forward on f32 copies of the inputs, within `FLASH_BWD_TOL`, `BAG_BWD_TOL`
 and `AGG_T_TOL`, and must give the same bytes on a second launch.  Each
 ``*_case`` function returns the largest absolute difference it saw and
-raises ``AssertionError`` on any mismatch.
+raises ``AssertionError`` on any mismatch.  The GNN archs launch no
+kernel of their own; `gnn_card_against_cpu` holds a model on the card to
+a CPU copy of it.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -45,7 +48,7 @@ __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
            "agg_case", "FLASH_BWD_CASES", "FLASH_BWD_TOL", "flash_bwd_case",
            "BAG_BWD_CASES", "BAG_BWD_TOL", "bag_bwd_case", "AGG_T_CASES",
            "AGG_T_TOL", "agg_t_case", "grads_close", "ADAMW_CASES",
-           "adamw_case"]
+           "adamw_case", "GNN_OUT_TOL", "gnn_card_against_cpu"]
 
 
 def random_graph(n: int, deg: int, n_labels: int, seed: int,
@@ -759,3 +762,62 @@ def adamw_case(case, device, seed=0) -> float:
             raise AssertionError(f"adamw {name}: {what} differs from the "
                                  f"plain version by up to {err}")
     return 0.0
+
+
+# ---------------------------------------------------------------------------
+# GNN archs: the card against a CPU copy.  Their scatters (and gathers'
+# backward) are ``index_add_``, which the card adds with atomics in no fixed
+# order (in bf16 rounding after every add) and the CPU in order (in bf16
+# summing in f32 and rounding once): outputs within the CPU parity tests'
+# bounds against the reference (``tests/test_torch_gnn_archs.py``), the
+# loss within 1e-3 relative for nequip (f32), and for the bf16 archs
+# within ~2.7x the largest move the two roundings gave on an H100 (the
+# molecule check of ``chip_smoke.py`` phase 8b at full width, the reduced
+# cases of ``tests/test_torch_gpu.py``): schnet 1e-2 (read up to 3.75e-3,
+# reduced molecule), graphcast 5e-3 (read up to 1.7e-3, reduced).
+# ---------------------------------------------------------------------------
+
+# arch → ((scaled, absolute) bound on the outputs: |Δ| ≤ scaled·max|out| +
+# abs, relative bound on the loss)
+GNN_OUT_TOL = {"nequip": ((1e-4, 0.0), 1e-3),
+               "schnet": ((0.02, 0.05), 1e-2),
+               "graphcast": ((0.02, 0.05), 5e-3)}
+
+
+def _gnn_apply(name: str):
+    from ..models.gnn.graphcast import graphcast_apply
+    from ..models.gnn.nequip import nequip_apply
+    from ..models.gnn.schnet import schnet_apply
+
+    return {"schnet": schnet_apply, "nequip": nequip_apply,
+            "graphcast": graphcast_apply}[name]
+
+
+def gnn_card_against_cpu(arch, shape: str, model, gb) -> str:
+    """``model`` (f32 masters) and batch ``gb`` on the card against copies
+    of both on the CPU: outputs and loss within `GNN_OUT_TOL` (above);
+    returns a line of the numbers, raises past them."""
+    import copy
+    import dataclasses
+
+    apply = _gnn_apply(arch.name)
+    loss_fn = arch.loss_fn(shape)
+    cpu_model = copy.deepcopy(model).cpu()
+    gb_cpu = dataclasses.replace(gb, **{
+        f.name: getattr(gb, f.name).cpu() for f in dataclasses.fields(gb)
+        if isinstance(getattr(gb, f.name), torch.Tensor)})
+    with torch.no_grad():
+        got = apply(model, gb).float().cpu()
+        want = apply(cpu_model, gb_cpu).float()
+        l_card, l_cpu = float(loss_fn(model, gb)), float(loss_fn(cpu_model,
+                                                                  gb_cpu))
+    (scaled, atol), rtol = GNN_OUT_TOL[arch.name]
+    bound = scaled * float(want.abs().max()) + atol
+    err = float((got - want).abs().max())
+    rel = abs(l_card - l_cpu) / max(abs(l_cpu), 1e-30)
+    msg = (f"loss card {l_card!r} cpu {l_cpu!r} (rel {rel:.3g}, bound "
+           f"{rtol}); outputs max abs err {err:.4g} (bound {bound:.4g})")
+    if not (math.isfinite(l_card) and err <= bound and rel <= rtol):
+        raise AssertionError(f"{arch.name} {shape} on the card against the "
+                             f"CPU: {msg}")
+    return msg

@@ -4,7 +4,9 @@
 The model is an ``nn.Module`` whose trainable parameters
 (``requires_grad``) are the optimizer's tree, keyed by their module names
 (`trainable_params`).  Gradients come from ``torch.autograd.grad``, so no
-``.grad`` is kept between steps, and AdamW writes the new values into the
+``.grad`` is kept between steps; a parameter the loss does not reach (the
+last NequIP layer's vector and tensor weights) gets a zero gradient, as
+``jax.grad`` gives it.  AdamW writes the new values into the
 parameters in place, with the step guard's alarm held back
 (`elastic.uninterruptible`): a step is cut before its update or after it,
 never inside.
@@ -44,7 +46,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig) -> Callable:
             raise ValueError("the model has no trainable parameter: build it "
                              "with train=True")
         loss = loss_fn(model, *batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    materialize_grads=True)
         with uninterruptible():
             _, opt_state = adamw_update(opt_cfg, dict(zip(params, grads)),
                                         opt_state, params)

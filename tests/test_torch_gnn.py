@@ -18,8 +18,8 @@ inputs, with the reference's weights carried over by `repro_torch.interop`:
     bf16 kernel tolerance (atol = rtol = 2e-2) and the loss to 1e-3
     relative;
   * `NeighborSampler` blocks bit-exact against ``repro.data.sampler``;
-  * the arch wrapper: shapes and input specs equal, unported shapes (and
-    their training steps) raise.
+  * the arch wrapper: shapes and input specs equal, the unported shape
+    (ogb_products, and its training step) raises.
 """
 import dataclasses
 
@@ -180,9 +180,8 @@ def _sage_pair(reduced=True, seed=1):
     jcfg, init, jloss = j_arch._build("minibatch_lg", reduced)
     params = jax.jit(init)(jax.random.key(seed))
     tcfg = t_arch.config("minibatch_lg", reduced)
-    want = dataclasses.asdict(jcfg)
-    assert want.pop("graph_level") is False   # node-level: the port's only kind
-    assert dataclasses.asdict(tcfg) == want
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.graph_level is False
     model = interop.sage_params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params), tcfg)
     return jcfg, params, jloss, model

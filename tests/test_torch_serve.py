@@ -139,10 +139,11 @@ def test_registry():
     for name in LM_ARCHS:
         assert get_arch(name).name == name and get_arch(name).family == "lm"
     assert list_archs("recsys") == ["dlrm-rm2"]
-    assert list_archs("gnn") == ["graphsage-reddit"]
+    assert list_archs("gnn") == ["graphsage-reddit", "schnet", "nequip",
+                                 "graphcast"]
     for other in ("schnet", "nequip", "graphcast"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(other)
+        assert get_arch(other).name == other
+        assert get_arch(other).family == "gnn"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
