@@ -190,7 +190,22 @@ line):
                the table cast and the bag backward timed, the bag
                backward held against autograd of the plain bag at the
                first batch's bags (f32 copies, a table at a time) and
-               launched twice (identical bytes);
+               launched twice (identical bytes).  train-lm-sharded, right
+               after train-lm: (a) the same flags under ``torchrun
+               --standalone --nproc-per-node 1`` on NCCL with
+               ``--model-parallel 1``, through the trainer's mesh path
+               (a 1×1 mesh, `phase_train_rank` in the rank: counts
+               zeroed before the CLI, read after it): its loss lines and
+               final checkpoint (every leaf's shape, dtype and CRC-32)
+               must equal train-lm's, and so must its launches; its
+               median step, tokens/s and peak are printed beside
+               train-lm's; (b) world size 2 on the one card over gloo with
+               CUDA tensors, ``--model-parallel 2``, full width at
+               `SHARDED_LAYERS` of 28 layers, 4 steps, against world size
+               1 (NCCL) at the same depth: losses within `SHARDED_TOL`,
+               each rank's peak below world size 1's, and every rank
+               launching the flash forward, backward and AdamW (neither
+               run writes its final checkpoint: nothing reads it);
  12. distributed — the distributed plane through the CLI under
                ``torchrun --standalone`` (each rank `phase_dist_rank`:
                launch counts zeroed before the CLI and read after it,
@@ -212,7 +227,8 @@ line):
                the collectives' semantics, not their speed;
  13. the kernels JSON line (all nine kernels; the backward kernels' and
      AdamW's launches from the training phases, phase 8b's added to the
-     aggregate's, the transpose's and AdamW's), then the last line:
+     aggregate's, the transpose's and AdamW's, train-lm-sharded's to the
+     flash kernels' and AdamW's), then the last line:
      {"ok": true, "device": {...}}.
 
 Imports torch and the port (``src/repro_torch``) only — never JAX and
@@ -1689,6 +1705,18 @@ def phase_kernels(dev, launches: dict, worst: dict, sigma: int) -> list:
 # activations fit one card without sharding (PERF.md)
 TRAIN_FLAGS = ["--arch", "qwen3-1.7b", "--steps", "8", "--batch", "4",
                "--seq", "1024", "--log-every", "1", "--ckpt-every", "100"]
+# the kernels a training run launches (the rank records of train-rank)
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "adamw")
+# train-lm-sharded (b): two ranks at --model-parallel 2 on the one card
+# (gloo), full width at 4 of 28 layers, 4 steps, against one rank at the
+# same depth; every step's loss within 1e-4 relative (the same weights and
+# batch: the sharded step differs only in the order of f32 sums).  Sound
+# runs read at most 1.1e-5; with the replicated leaves' gradient sum left
+# out, step 3 reads 1.4e-4 (PERF.md, PR 23)
+SHARDED_LAYERS = 4
+SHARDED_FLAGS = ["--arch", "qwen3-1.7b", "--steps", "4", "--batch", "4",
+                 "--seq", "1024", "--log-every", "1", "--ckpt-every", "100"]
+SHARDED_TOL = 1e-4
 # the kill-and-resume: the same width at 2 layers (checkpoints ~5 GB), cut
 # by a stalled step 2 under --step-budget-s, then resumed
 RESUME_LAYERS, RESUME_STEPS, RESUME_STALL_AT, RESUME_BUDGET_S = 2, 4, 3, 10
@@ -1752,6 +1780,19 @@ def _losses(text: str) -> list:
 
     return [float(v) for v in
             re.findall(r"\[train\] step=\d+ loss=([0-9.]+)", text)]
+
+
+def _steady(text: str) -> dict:
+    """The trainer's closing measurements: median step seconds, tokens/s
+    and the lead rank's peak bytes."""
+    import re
+
+    m = re.search(r"step_s median=([0-9.]+) .*tokens_per_s=([0-9.]+) "
+                  r"max_memory_allocated=(\d+)", text)
+    if m is None:
+        raise AssertionError("the trainer printed no [train] steady line")
+    return {"step_s": float(m.group(1)), "tokens_per_s": float(m.group(2)),
+            "peak": int(m.group(3))}
 
 
 def _flash_bwd_row(dev) -> dict:
@@ -1850,7 +1891,8 @@ def phase_train_lm(out: Path, dev) -> tuple:
     """qwen3-1.7b trained at full width through the trainer CLI: 8 steps at
     batch 4 × 1 024, a falling loss, one final checkpoint (then deleted);
     returns (launches by kernel, the flash backward's and AdamW's kernel
-    rows)."""
+    rows, and what train-lm-sharded compares with: the losses, launches,
+    steady line and the final checkpoint's manifest)."""
     import shutil
 
     from repro_torch.configs.registry import get_arch
@@ -1894,9 +1936,12 @@ def phase_train_lm(out: Path, dev) -> tuple:
                              f"forward and backward once per layer and "
                              f"AdamW once per parameter ({n_leaves}): "
                              f"{launches}")
+    ref = {"losses": losses, "launches": launches, "steady": _steady(text),
+           "manifest": json.loads((ckpt_dir / f"step_{steps - 1:08d}"
+                                   / "manifest.json").read_text())}
     shutil.rmtree(ckpt_dir)
     torch.cuda.empty_cache()
-    return launches, _flash_bwd_row(dev), _adamw_row(dev, cfg)
+    return launches, _flash_bwd_row(dev), _adamw_row(dev, cfg), ref
 
 
 def _adamw_row(dev, cfg) -> dict:
@@ -2094,15 +2139,17 @@ DIST_KILL_AT = 3          # golden-distributed's session crashes here
 
 
 def _torchrun(tag: str, nproc: int, flags: list, *, env_extra=None,
-              timeout: int = 600) -> tuple:
-    """The mining CLI under ``torchrun --standalone`` in ``nproc`` ranks,
-    each through `phase_dist_rank`; returns (exit code, rank 0's record,
+              timeout: int = 600, rank_phase: str = "dist-rank") -> tuple:
+    """A CLI under ``torchrun --standalone`` in ``nproc`` ranks, each
+    through ``rank_phase`` (`phase_dist_rank`: the mining CLI;
+    `phase_train_rank`: the trainer); returns (exit code, rank 0's record,
     the ranks' and torchrun's output)."""
-    rec = OUT / f"dist_{tag}_rank0.json"
-    rec.unlink(missing_ok=True)
+    rec = _rank_record(rank_phase, tag, 0)
+    for r in range(nproc):
+        _rank_record(rank_phase, tag, r).unlink(missing_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={nproc}", str(Path(__file__).resolve()),
-           "--phase", "dist-rank", "--", *flags]
+           "--phase", rank_phase, "--", *flags]
     env = dict(os.environ, SMOKE_DIST_TAG=tag, **(env_extra or {}))
     sys.stdout.flush()
     # a session of its own, so that a timeout stops torchrun's ranks too
@@ -2117,6 +2164,11 @@ def _torchrun(tag: str, nproc: int, flags: list, *, env_extra=None,
             proc.wait()
     return (proc.returncode,
             json.loads(rec.read_text()) if rec.exists() else None, out)
+
+
+def _rank_record(rank_phase: str, tag: str, rank: int) -> Path:
+    prefix = {"dist-rank": "dist", "train-rank": "train"}[rank_phase]
+    return OUT / f"{prefix}_{tag}_rank{rank}.json"
 
 
 def phase_dist_rank(flags: list) -> int:
@@ -2140,6 +2192,176 @@ def phase_dist_rank(flags: list) -> int:
                     "counters": dict(D.COUNTERS),
                     "collective_ms": D.collective_device_ms()}))
     return rc
+
+
+def phase_train_rank(flags: list) -> int:
+    """One torchrun rank of the trainer CLI: its launch counts (zeroed
+    before the CLI, read after it), wall and peak device memory, written
+    to ``build/smoke/train_<tag>_rank<r>.json``.  ``SMOKE_TRAIN_LAYERS``
+    cuts the arch's depth (its width unchanged); ``SMOKE_TRAIN_NO_SAVE=1``
+    leaves the final checkpoint's directory empty (no leaf is gathered or
+    written) for a run whose checkpoint nothing reads."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.launch import train as cli
+
+    layers = os.environ.get("SMOKE_TRAIN_LAYERS")
+    get_arch = cli.get_arch
+
+    def cut(name):
+        arch = get_arch(name)
+        return dataclasses.replace(arch, cfg=dataclasses.replace(
+            arch.cfg, n_layers=int(layers)))
+
+    def no_save(ckpt_dir, step, tree, **_):
+        (Path(ckpt_dir) / f"step_{step:08d}").mkdir(parents=True,
+                                                     exist_ok=True)
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with contextlib.ExitStack() as patches:
+        if layers:
+            patches.enter_context(mock.patch.object(cli, "get_arch", cut))
+        if os.environ.get("SMOKE_TRAIN_NO_SAVE") == "1":
+            patches.enter_context(mock.patch.object(
+                cli, "state_tree", lambda *a: None))
+            patches.enter_context(mock.patch.object(cli.ckpt, "save",
+                                                    no_save))
+        rc = cli.main(flags)
+    torch.cuda.synchronize()
+    rank = int(os.environ.get("RANK", "0"))
+    counts = _read_counts()
+    _rank_record("train-rank", os.environ["SMOKE_DIST_TAG"], rank).write_text(
+        json.dumps({"rank": rank, "rc": rc,
+                    "wall_s": time.monotonic() - t0,
+                    "launches": {k: counts[k] for k in TRAIN_KERNELS},
+                    "peak": torch.cuda.max_memory_allocated()}))
+    return rc
+
+
+def _manifest_leaves_equal(name: str, got: dict, want: dict) -> int:
+    """Two checkpoints' manifests: the same tree, and every leaf of the
+    same shape, dtype and CRC-32; returns the leaf count."""
+    if got["treedef"] != want["treedef"] or got["extra"] != want["extra"]:
+        raise AssertionError(f"{name}: checkpoint tree or extra differs")
+    if got["leaves"] != want["leaves"]:
+        bad = [i for i, (a, b) in enumerate(zip(got["leaves"],
+                                                 want["leaves"])) if a != b]
+        raise AssertionError(f"{name}: {len(bad)} checkpoint leaves differ "
+                             f"(first {bad[:5]})")
+    return len(got["leaves"])
+
+
+def sharded_loss_gaps(sharded: list, one: list) -> list:
+    """Each step's relative gap between world size 2's losses and world
+    size 1's; AssertionError past `SHARDED_TOL` (or on a missing or
+    non-finite loss)."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(sharded, one)]
+    if len(sharded) != len(one) or not one or \
+            not all(map(math.isfinite, sharded)) or \
+            not all(r <= SHARDED_TOL for r in rel):
+        raise AssertionError(f"train-lm-sharded (b): world size 2's losses "
+                             f"{sharded} vs world size 1's {one}: relative "
+                             f"{rel} (tolerance {SHARDED_TOL})")
+    return rel
+
+
+def phase_train_lm_sharded(out: Path, lm: dict) -> dict:
+    """train-lm-sharded: the trainer through the mesh code path under
+    ``torchrun`` (module doc, phase 11); returns the launches of its runs,
+    by kernel."""
+    import shutil
+
+    card = phase_card()
+    total = {k: 0 for k in TRAIN_KERNELS}
+
+    def run(tag, nproc, flags, layers=None):
+        d = out / f"train_{tag}"
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+        t = time.monotonic()
+        rc, rank0, text = _torchrun(
+            tag, nproc, flags + ["--device", "cuda", "--ckpt-dir", str(d)],
+            rank_phase="train-rank", timeout=900,
+            env_extra={"SMOKE_TRAIN_LAYERS": str(layers),
+                       "SMOKE_TRAIN_NO_SAVE": "1"} if layers else None)
+        torchrun_s = time.monotonic() - t
+        if rc != 0 or rank0 is None:
+            raise AssertionError(f"train-lm-sharded {tag}: torchrun exited "
+                                 f"{rc}:\n{text[-3000:]}")
+        ranks = [json.loads(_rank_record("train-rank", tag, r).read_text())
+                 for r in range(nproc)]
+        for r in ranks:
+            for k in total:
+                total[k] += r["launches"][k]
+        saved = [ln for ln in text.splitlines() if "[train] saved step" in ln]
+        _log(f"train-lm-sharded {tag}: torchrun {torchrun_s:.1f} s, ranks' "
+             f"wall_s {[round(r['wall_s'], 1) for r in ranks]}; "
+             f"{saved[-1:]}")
+        return d, ranks, text
+
+    # (a) world size 1 on NCCL, the mesh path, full width and depth
+    steps = int(TRAIN_FLAGS[TRAIN_FLAGS.index("--steps") + 1])
+    d, ranks, text = run("lm-sharded", 1, TRAIN_FLAGS + ["--model-parallel",
+                                                         "1"])
+    losses, steady = _losses(text), _steady(text)
+    if "mesh (data, model)=(1, 1)" not in text:
+        raise AssertionError("train-lm-sharded: the trainer ran no mesh")
+    if losses != lm["losses"]:
+        raise AssertionError(f"train-lm-sharded: losses {losses} != "
+                             f"train-lm's {lm['losses']}")
+    n = _manifest_leaves_equal(
+        "train-lm-sharded", json.loads((d / f"step_{steps - 1:08d}"
+                                        / "manifest.json").read_text()),
+        lm["manifest"])
+    if ranks[0]["launches"] != lm["launches"]:
+        raise AssertionError(f"train-lm-sharded: launches "
+                             f"{ranks[0]['launches']} != train-lm's "
+                             f"{lm['launches']}")
+    _log(f"train-lm-sharded (a): qwen3-1.7b full width and depth, 1x1 mesh "
+         f"on one NCCL rank under torchrun ({card}): losses == train-lm's "
+         f"{losses}; final checkpoint == train-lm's ({n} leaves: shape, "
+         f"dtype and CRC-32 each); median step_s {steady['step_s']:.4f} "
+         f"(train-lm {lm['steady']['step_s']:.4f}), tokens_per_s "
+         f"{steady['tokens_per_s']:.1f} ({lm['steady']['tokens_per_s']:.1f}),"
+         f" peak {steady['peak']} bytes ({lm['steady']['peak']}); launches "
+         f"{ranks[0]['launches']} (train-lm {lm['launches']}); rank wall_s="
+         f"{ranks[0]['wall_s']:.1f}")
+    shutil.rmtree(d)
+
+    # (b) world size 2 over gloo on the one card, --model-parallel 2, at
+    # SHARDED_LAYERS layers, against world size 1 at the same depth
+    got = {}
+    for ws, extra in ((1, []), (2, ["--backend", "gloo"])):
+        d, ranks, text = run(f"lm-sharded-ws{ws}", ws, SHARDED_FLAGS + [
+            "--model-parallel", str(ws)] + extra, layers=SHARDED_LAYERS)
+        got[ws] = (_losses(text), _steady(text), ranks)
+        _log(f"train-lm-sharded (b): {SHARDED_LAYERS} of 28 layers, world "
+             f"size {ws} ({'gloo, CUDA tensors' if ws > 1 else 'NCCL'}), "
+             f"--model-parallel {ws}: losses {got[ws][0]}; median step_s "
+             f"{got[ws][1]['step_s']:.4f}; peak bytes by rank "
+             f"{[r['peak'] for r in ranks]}; launches by rank "
+             f"{[r['launches'] for r in ranks]}")
+        shutil.rmtree(d)
+    (l1, s1, r1), (l2, s2, r2) = got[1], got[2]
+    rel = sharded_loss_gaps(l2, l1)
+    if not all(r["peak"] < r1[0]["peak"] for r in r2):
+        raise AssertionError(f"train-lm-sharded (b): a rank's peak "
+                             f"{[r['peak'] for r in r2]} is not below world "
+                             f"size 1's {r1[0]['peak']}")
+    for r in r2:
+        if r["launches"]["flash_attention"] <= 0 or \
+                r["launches"]["flash_attention_bwd"] <= 0 or \
+                r["launches"]["adamw"] <= 0:
+            raise AssertionError(f"train-lm-sharded (b): rank {r['rank']} "
+                                 f"launched no kernel: {r['launches']}")
+    _log(f"train-lm-sharded (b): world size 2 losses within {SHARDED_TOL} "
+         f"relative of world size 1's ("
+         f"{[f'{r:.2e}' for r in rel]}); each rank's peak "
+         f"{[r['peak'] for r in r2]} below world size 1's {r1[0]['peak']}")
+    return total
 
 
 def _no_dispatches(d: dict) -> dict:
@@ -2705,19 +2927,31 @@ def phase_gnn_archs(dev, gnn: dict) -> dict:
     return total
 
 
+def _timed(phase, *args):
+    """``phase(*args)``, its wall time logged."""
+    t = time.monotonic()
+    try:
+        return phase(*args)
+    finally:
+        _log(f"time {phase.__name__}: {time.monotonic() - t:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mico-sigma", type=int, default=MICO_SIGMA,
                     help="σ of the full-size mico run (phase 5)")
     ap.add_argument("--phase", choices=["train-resume", "distributed",
                                         "dist-rank", "serve-archs",
-                                        "gnn-archs"],
+                                        "gnn-archs", "train-rank",
+                                        "train-sharded"],
                     help="run this phase alone (the smoke runs train-resume "
                          "so, in a child process of its own, and each rank "
                          "of the distributed phase as dist-rank, the CLI's "
                          "flags after --; serve-archs: phase 6b and the "
                          "flash kernel's rows of phase 9; gnn-archs: phase "
-                         "8's graph and forward, then phase 8b)")
+                         "8's graph and forward, then phase 8b; "
+                         "train-sharded: train-lm, then train-lm-sharded, "
+                         "whose torchrun ranks run as train-rank)")
     argv = sys.argv[1:] if argv is None else list(argv)
     cli_flags = argv[argv.index("--") + 1:] if "--" in argv else []
     argv = argv[:argv.index("--")] if "--" in argv else argv
@@ -2734,6 +2968,20 @@ def main(argv=None) -> int:
         return 0
     if args.phase == "dist-rank":
         return phase_dist_rank(cli_flags)
+    if args.phase == "train-rank":
+        return phase_train_rank(cli_flags)
+    if args.phase == "train-sharded":
+        OUT.mkdir(parents=True, exist_ok=True)
+        dev = torch.device("cuda")
+        phase_build()
+        t0 = time.monotonic()
+        lm_ref = phase_train_lm(OUT, dev)[3]
+        t1 = time.monotonic()
+        phase_train_lm_sharded(OUT, lm_ref)
+        _log(f"train-sharded alone: train-lm {t1 - t0:.1f} s, "
+             f"train-lm-sharded {time.monotonic() - t1:.1f} s")
+        phase_card()
+        return 0
     if args.phase == "distributed":
         OUT.mkdir(parents=True, exist_ok=True)
         phase_build()
@@ -2762,41 +3010,43 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     phase_build()
     phase_card()
-    worst = phase_parity(dev)
-    worst_flash = phase_flash_parity(dev)
-    worst_new = phase_bag_agg_parity(dev)
-    worst_bwd = phase_backward_parity(dev)
+    worst = _timed(phase_parity, dev)
+    worst_flash = _timed(phase_flash_parity, dev)
+    worst_new = _timed(phase_bag_agg_parity, dev)
+    worst_bwd = _timed(phase_backward_parity, dev)
     OUT.mkdir(parents=True, exist_ok=True)
-    phase_golden(OUT)
-    _, batched = phase_main(OUT, args.mico_sigma)
-    launches, auto, auto_wall = phase_auto(OUT, args.mico_sigma, batched)
-    phase_sampled(OUT, args.mico_sigma, batched)
-    flash_launches = phase_serve(OUT)
+    _timed(phase_golden, OUT)
+    _, batched = _timed(phase_main, OUT, args.mico_sigma)
+    launches, auto, auto_wall = _timed(phase_auto, OUT, args.mico_sigma,
+                                       batched)
+    _timed(phase_sampled, OUT, args.mico_sigma, batched)
+    flash_launches = _timed(phase_serve, OUT)
     for arch, n_layers, replay in SERVE_ARCHS:
-        flash_launches += phase_serve_arch(dev, arch, n_layers, replay)
-    bag_launches, bag = phase_recsys(dev)
-    agg_launches, agg, gnn = phase_gnn(dev)
-    aggt_launches, aggt = phase_train_gnn(dev, gnn)
-    t_archs = time.monotonic()
-    arch_launches = phase_gnn_archs(dev, gnn)
-    _log(f"gnn-archs: {time.monotonic() - t_archs:.1f} s")
+        flash_launches += _timed(phase_serve_arch, dev, arch, n_layers,
+                                 replay)
+    bag_launches, bag = _timed(phase_recsys, dev)
+    agg_launches, agg, gnn = _timed(phase_gnn, dev)
+    aggt_launches, aggt = _timed(phase_train_gnn, dev, gnn)
+    arch_launches = _timed(phase_gnn_archs, dev, gnn)
     del gnn
-    kernels = phase_kernels(dev, launches, worst, args.mico_sigma)
-    flash = phase_flash_kernel(dev)
-    session, session_launches, meter = phase_session_auto(
-        OUT, args.mico_sigma, auto, auto_wall)
-    phase_session_kill(OUT, args.mico_sigma, session, session_launches, meter)
-    phase_session_sigterm(OUT)
-    phase_mis_exact(dev)
-    lm_launches, flash_bwd, adamw = phase_train_lm(OUT, dev)
-    phase_train_resume_child()
-    bag_bwd_launches, bag_bwd = phase_train_dlrm(dev)
-    phase_distributed(OUT, args.mico_sigma)
+    kernels = _timed(phase_kernels, dev, launches, worst, args.mico_sigma)
+    flash = _timed(phase_flash_kernel, dev)
+    session, session_launches, meter = _timed(
+        phase_session_auto, OUT, args.mico_sigma, auto, auto_wall)
+    _timed(phase_session_kill, OUT, args.mico_sigma, session,
+           session_launches, meter)
+    _timed(phase_session_sigterm, OUT)
+    _timed(phase_mis_exact, dev)
+    lm_launches, flash_bwd, adamw, lm_ref = _timed(phase_train_lm, OUT, dev)
+    sharded = _timed(phase_train_lm_sharded, OUT, lm_ref)
+    _timed(phase_train_resume_child)
+    bag_bwd_launches, bag_bwd = _timed(phase_train_dlrm, dev)
+    _timed(phase_distributed, OUT, args.mico_sigma)
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-        "launches": flash_launches,
+        "launches": flash_launches + sharded["flash_attention"],
         "max_abs_err": max(worst_flash, flash["max_abs_err"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -2819,15 +3069,16 @@ def main(argv=None) -> int:
     # forward kernel each differentiates (AdamW: the reference's update it
     # fuses); launches are the training runs'
     for name, n, row, replaces in (
-            ("flash_attention_bwd", lm_launches["flash_attention_bwd"],
+            ("flash_attention_bwd", lm_launches["flash_attention_bwd"]
+             + sharded["flash_attention_bwd"],
              flash_bwd, "src/repro/kernels/flash_attention/kernel.py:27"),
             ("embedding_bag_bwd", bag_bwd_launches["embedding_bag_bwd"],
              bag_bwd, "src/repro/kernels/embedding_bag/kernel.py:20"),
             ("gather_aggregate_t", aggt_launches["gather_aggregate_t"]
              + arch_launches["gather_aggregate_t"], aggt,
              "src/repro/kernels/gather_aggregate/kernel.py:24"),
-            ("adamw", lm_launches["adamw"] + arch_launches["adamw"], adamw,
-             "src/repro/train/optimizer.py:59")):
+            ("adamw", lm_launches["adamw"] + arch_launches["adamw"]
+             + sharded["adamw"], adamw, "src/repro/train/optimizer.py:59")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,

@@ -38,9 +38,11 @@ from ..data.sampler import NeighborSampler
 from ..data.synthetic import rmat_undirected_graph
 from ..device import resolve_device
 from ..models.gnn.common import GraphBatch
-from ..train.optimizer import AdamWConfig
+from ..models.sharding import P, PartitionSpec
+from ..train.optimizer import AdamWConfig, AdamWState
 from ..train.step import make_train_step
-from .base import ShapeCell, TensorSpec
+from .base import (ShapeCell, TensorSpec, abstract_params,
+                   default_param_pspecs)
 
 GNN_SHAPES: Dict[str, ShapeCell] = {
     "full_graph_sm": ShapeCell("full_graph_sm", "train", dict(
@@ -60,6 +62,7 @@ GNN_SHAPES: Dict[str, ShapeCell] = {
         graph_level=True, n_graphs=128)),
 }
 PORTED_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
+NODE_AXES = ("pod", "data")
 
 _REDUCED_META = dict(n_nodes=64, n_edges=256, d_feat=8, n_out=4,
                      graph_level=False, n_graphs=1)
@@ -116,6 +119,32 @@ class GNNArch:
         trainable masters with ``train``."""
         init_fn = self._build(shape, reduced)[1]
         return init_fn(generator, resolve_device(device), train=train)
+
+    # ---- partition specs (the reference's) ----------------------------------
+    def _meta_model(self, shape: str, reduced: bool):
+        return self._build(shape, reduced)[1](torch.Generator(), "meta",
+                                              train=True)
+
+    def abstract_params(self, shape: str = "full_graph_sm", *,
+                     reduced: bool = False):
+        return abstract_params(self._meta_model(shape, reduced))
+
+    def param_pspecs(self, shape: str = "full_graph_sm", *,
+                     reduced: bool = False) -> Dict[str, PartitionSpec]:
+        """GNN parameters are small: replicated; the nodes carry the
+        sharding."""
+        return default_param_pspecs(self._meta_model(shape, reduced))
+
+    def opt_pspecs(self, shape: str = "full_graph_sm", *,
+                   reduced: bool = False) -> AdamWState:
+        ps = self.param_pspecs(shape, reduced=reduced)
+        return AdamWState(step=P(), mu=ps, nu=ps)
+
+    def input_pspecs(self, shape: str) -> Dict[str, Dict[str, PartitionSpec]]:
+        """Every batch field over the node axes (edges too: the reference's
+        ``NODE_AXES`` on dimension 0), the rest replicated."""
+        return {"batch": {k: P(NODE_AXES, *([None] * (len(v.shape) - 1)))
+                          for k, v in self.input_specs(shape).items()}}
 
     # ---- inputs ------------------------------------------------------------
     @staticmethod

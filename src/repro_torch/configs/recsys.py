@@ -10,7 +10,10 @@ The train step is the reference's: `dlrm_loss`, its gradients and
 `adamw_update` with the arch's `AdamWConfig` (lr 1e-3), on a model built
 with ``train=True`` (f32 tables and MLPs; the tables get a dense update
 every step, as in the reference).  The serving steps run under
-``torch.inference_mode()``.  Partition specs wait for the sharding item.
+``torch.inference_mode()``.  The partition specs are the reference's
+(`_dlrm_pspec`: tables row-sharded over the model axis, the rest
+replicated; inputs over the batch axes), in the port's layout; the port
+has no sharded DLRM run yet.
 """
 from __future__ import annotations
 
@@ -24,9 +27,12 @@ from ..data.synthetic import dlrm_batches
 from ..device import resolve_device
 from ..models.dlrm import (DLRM, DLRMConfig, dlrm_apply, dlrm_init, dlrm_loss,
                            retrieval_score)
-from ..train.optimizer import AdamWConfig
+from ..models.sharding import P, PartitionSpec
+from ..train.optimizer import AdamWConfig, AdamWState
 from ..train.step import make_train_step
-from .base import ShapeCell, TensorSpec
+from .base import ShapeCell, TensorSpec, abstract_params, model_pspecs
+
+BATCH_AXES = ("pod", "data")
 
 RECSYS_SHAPES = {
     "train_batch": ShapeCell("train_batch", "train", dict(batch=65_536)),
@@ -37,6 +43,14 @@ RECSYS_SHAPES = {
 }
 _REDUCED_BATCH = {"train_batch": 32, "serve_p99": 8, "serve_bulk": 64,
                   "retrieval_cand": 1}
+
+
+def _dlrm_pspec(path, leaf) -> PartitionSpec:
+    """The reference's rule, on a reference path and leaf shape."""
+    names = [str(p) for p in path]
+    if "tables" in names:
+        return P("model", None)  # row-sharded embedding tables
+    return P(*([None] * len(leaf.shape)))
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -82,6 +96,33 @@ class RecsysArch:
         trainable tables and MLPs with ``train``."""
         return dlrm_init(self.config(reduced), generator,
                          device=resolve_device(device), train=train)
+
+    # ---- partition specs (the reference's, in the port's layout) -----------
+    def abstract_params(self, shape: str = None, *, reduced: bool = False
+                        ) -> Dict[str, TensorSpec]:
+        return abstract_params(DLRM(self.config(reduced), device="meta"))
+
+    def param_pspecs(self, shape: str = None, *, reduced: bool = False
+                     ) -> Dict[str, PartitionSpec]:
+        return model_pspecs(DLRM(self.config(reduced), device="meta"),
+                            _dlrm_pspec)
+
+    def opt_pspecs(self, shape: str = None, *, reduced: bool = False
+                   ) -> AdamWState:
+        ps = self.param_pspecs(shape, reduced=reduced)
+        return AdamWState(step=P(), mu=ps, nu=ps)
+
+    def input_pspecs(self, shape: str) -> Dict[str, PartitionSpec]:
+        kind = RECSYS_SHAPES[shape].kind
+        out = {"dense": P(BATCH_AXES, None),
+               "sparse_idx": P(BATCH_AXES, None, None)}
+        if kind == "train":
+            out["labels"] = P(BATCH_AXES)
+        if kind == "retrieval":
+            out["dense"] = P(None, None)
+            out["sparse_idx"] = P(None, None, None)
+            out["candidates"] = P(("data", "model"), None)
+        return out
 
     # ---- inputs ------------------------------------------------------------
     def batch(self, shape: str, reduced: bool = False) -> int:

@@ -26,7 +26,9 @@ compares the port's outputs through them, one function per state type:
   * optimizer state — `adamw_state_from_numpy` / `adamw_state_to_numpy`:
     the reference's ``AdamWState`` ↔ the port's, moments by parameter;
   * graph batches — `graph_batch_from_numpy` (from any object with the
-    reference's `GraphBatch` fields).
+    reference's `GraphBatch` fields);
+  * partition specs — `spec_to_port`: a reference parameter's spec in the
+    port's layout.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from .models.gnn.graphcast import GraphCast, GraphCastConfig
 from .models.gnn.graphsage import SAGE, SAGEConfig
 from .models.gnn.nequip import NequIP, NequIPConfig
 from .models.gnn.schnet import SchNet, SchNetConfig
+from .models.sharding import PartitionSpec
 from .models.transformer import Transformer, TransformerConfig
 from .train.optimizer import AdamWState
 
@@ -57,7 +60,7 @@ __all__ = ["data_graph_from_arrays", "plan_from_numpy", "plan_from_fields",
            "nequip_params_from_numpy", "graphcast_params_from_numpy",
            "graph_batch_from_numpy",
            "param_entries", "params_to_numpy", "adamw_state_from_numpy",
-           "adamw_state_to_numpy"]
+           "adamw_state_to_numpy", "spec_to_port"]
 
 
 def data_graph_from_arrays(g) -> DataGraph:
@@ -230,6 +233,24 @@ def param_entries(model):
     if isinstance(model, (SchNet, NequIP, GraphCast)):
         return _named_dense_entries(model)
     raise TypeError(f"no reference layout for {type(model).__name__}")
+
+
+def spec_to_port(spec, entry) -> PartitionSpec:
+    """The partition spec of ``entry``'s port parameter, from its
+    reference leaf's ``spec``: the stacked layer axis dropped, a table of
+    DLRM's stack behind the stack axis (replicated), a dense kernel's two
+    axes swapped.  ``P()`` (every axis replicated) stays ``P()``."""
+    name, _, step, transposed = entry
+    parts = list(spec)
+    if not parts:
+        return PartitionSpec()
+    if step is not None:
+        parts = parts[1:]
+    if name == "tables":
+        parts = [None] + parts
+    if transposed:
+        parts = parts[::-1]
+    return PartitionSpec(*parts)
 
 
 def _get(tree, path):

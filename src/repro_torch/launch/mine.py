@@ -42,13 +42,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import signal
 import sys
 import time
 from typing import Optional
 
-import torch
 import torch.distributed as dist
 
 from repro_torch.core import MatchConfig, MiningConfig, mine
@@ -57,6 +55,7 @@ from repro_torch.core.flexis import tau_threshold
 from repro_torch.core.planner import persist_escalation_fraction
 from repro_torch.data.synthetic import PAPER_DATASETS, paper_dataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import join_torchrun_group
 
 # distinct "preempted, resumable" status: the run was stopped on request
 # (SIGTERM/SIGINT) after committing a final snapshot — rerunning the same
@@ -164,25 +163,6 @@ def _say(*args, **kw) -> None:
         print(*args, **kw)
 
 
-def _join_group(args, device: torch.device) -> bool:
-    """Join torchrun's process group when its environment is set; False
-    without it (a mesh of one)."""
-    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
-        return False
-    backend = args.backend
-    if backend == "auto":
-        backend = "nccl" if device.type == "cuda" else "gloo"
-    if backend == "nccl" and device.type != "cuda":
-        raise SystemExit("--backend nccl needs --device cuda")
-    if device.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", "0"))
-        torch.cuda.set_device(local % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method="env://",
-                            rank=int(os.environ["RANK"]),
-                            world_size=int(os.environ["WORLD_SIZE"]))
-    return True
-
-
 def result_json(args, res) -> dict:
     """The reference launcher's ``--json`` document for one run."""
     return {
@@ -269,7 +249,7 @@ def main(argv=None) -> int:
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     device = resolve_device(args.device)
-    joined = _join_group(args, device)
+    joined = join_torchrun_group(args.backend, device)
     try:
         if args.execution == "distributed" and args.metric != "mis_luby":
             _say(f"[mine] execution=distributed forces metric=mis_luby "

@@ -11,14 +11,32 @@ config field: CUDA tensors always go through the hand-written
 flash-attention kernels (``repro_torch.kernels.flash_attention``: the
 forward, and under autograd the backward kernels); CPU tensors keep the
 reference's ``impl`` meaning, ``"dense"`` or ``"chunked"``, both plain
-torch, differentiated by autograd.  So `AttentionConfig` has no ``use_flash`` field.  Sharding
-(``_tp_attention``, ``constrain``) has no counterpart on one card and is
-left out (ROADMAP).
+torch, differentiated by autograd.  So `AttentionConfig` has no ``use_flash`` field.
+
+Under a mesh (``models.sharding.use_rules``) `mha_train` takes and
+returns the residual stream's layout, the sequence split over the model
+axis, and picks the reference's region (`_tp_attention`):
+
+  * tensor-parallel when the model axis divides the heads: the sequence
+    is gathered, wq / wk / wv (column shards) give this rank's heads, the
+    kernel runs on them, and wo (a row shard) gives partial sums that are
+    reduce-scattered back onto the sequence.  Where there are fewer KV
+    heads than ranks, wk / wv's column shards split head_dim (the
+    reference's ``col`` rule), so K and V are gathered whole and each rank
+    keeps the KV heads its query heads read;
+  * sequence-parallel otherwise (or with ``REPRO_ATTN_MODE=sp``): the
+    weights are gathered, every rank computes the attention of the whole
+    sequence — the kernel takes equal query and key lengths — and keeps
+    its own positions' rows before wo.
+
+Decoding under a mesh (the reference's ``kv_seq`` cache split) is not
+ported: `mha_decode` raises there.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,11 +44,26 @@ from torch import nn
 
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import attention_mask
-from .common import Dense, RMSNorm, apply_rope, rotary_embedding, softcap
+from .common import (RESIDUAL, Dense, RMSNorm, apply_rope, dense_apply,
+                     rotary_embedding, row_parallel, softcap)
+from .sharding import (_axis_size, all_gather, axis_index, constrain,
+                       current_mesh)
 
 NEG_INF = -1e30
 
 Cache = Dict[str, torch.Tensor]
+
+
+
+def _tp_attention(n_heads: int) -> bool:
+    """Head-sharded (TP) attention when the heads divide the model axis,
+    else sequence-sharded (SP); ``REPRO_ATTN_MODE=sp`` forces SP."""
+    if os.environ.get("REPRO_ATTN_MODE") == "sp":
+        return False
+    mesh = current_mesh()
+    if mesh is None:
+        return True
+    return n_heads % _axis_size(mesh, "model") == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,18 +108,45 @@ def attention_init(cfg: AttentionConfig, generator: torch.Generator, *,
     return attn
 
 
-def _project_qkv(attn: Attention, x: torch.Tensor, positions: torch.Tensor):
-    """x: (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd), with RoPE + qk-norm."""
+def _project_qkv(attn: Attention, x: torch.Tensor, positions: torch.Tensor,
+                 weights=None):
+    """x: (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd), with RoPE + qk-norm;
+    H and KV are what the weights give (a rank's shard under a mesh).
+    ``weights``: (wq, wk, wv) in place of the modules' own."""
     cfg = attn.cfg
     B, S, _ = x.shape
-    q = attn.wq(x).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = attn.wk(x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = attn.wv(x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    if weights is None:
+        q, k, v = attn.wq(x), attn.wk(x), attn.wv(x)
+    else:
+        q, k, v = (dense_apply(w, x, dtype=attn.wq.dtype) for w in weights)
+    if k.shape[-1] % hd:
+        # column shards inside a KV head (fewer KV heads than ranks): K and
+        # V whole on every rank (the reference's guard replicates them)
+        k, v = all_gather(k, -1), all_gather(v, -1)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = attn.q_norm(q)
         k = attn.k_norm(k)
-    cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_base)
+    cos, sin = rotary_embedding(positions, hd, cfg.rope_base)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _kv_for_local_heads(k, v, cfg: AttentionConfig, n_q: int):
+    """The KV heads that this rank's ``n_q`` query heads (the model axis's
+    contiguous slice) read, when k / v hold every KV head."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if n_q == H or k.shape[2] != KV:
+        return k, v
+    g = H // KV
+    first = axis_index(current_mesh(), "model") * n_q
+    lo, hi = first // g, (first + n_q - 1) // g + 1
+    if n_q % (hi - lo) or (n_q < g and g % n_q):
+        raise ValueError(f"{n_q} query heads a rank do not map onto whole "
+                         f"KV groups of {g}")
+    return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
 def _attn_dense(q, k, v, cfg: AttentionConfig) -> torch.Tensor:
@@ -158,19 +218,60 @@ def mha_train(attn: Attention, x: torch.Tensor, positions: torch.Tensor, *,
     ``cache`` (a serving prefill) K and V of positions 0..S−1 are also
     written into it, as S decode steps would leave them."""
     cfg = attn.cfg
+    if current_mesh() is not None:
+        if cache is not None:
+            raise NotImplementedError("serving under a mesh is not ported")
+        return _mha_train_sharded(attn, x, positions, impl, q_chunk,
+                                  kv_chunk)
     B, S, D = x.shape
     q, k, v = _project_qkv(attn, x, positions)
     if cache is not None:
         _fill_cache(cache, k, v, windowed=cfg.window is not None)
-    if x.device.type == "cuda":
-        out = flash_ops.flash_attention(q, k, v, causal=True,
-                                        window=cfg.window,
-                                        softcap=cfg.logit_softcap)
-    elif impl == "chunked" and S > q_chunk:
-        out = _attn_chunked(q, k, v, cfg, min(q_chunk, S), min(kv_chunk, S))
-    else:
-        out = _attn_dense(q, k, v, cfg)
+    out = _attention(q, k, v, cfg, impl, q_chunk, kv_chunk)
     return attn.wo(out.reshape(B, S, -1))
+
+
+def _attention(q, k, v, cfg: AttentionConfig, impl, q_chunk, kv_chunk):
+    """The flash kernel on CUDA, the reference's dense or chunked path on
+    the CPU; the head counts are q's and k's."""
+    S = q.shape[1]
+    if q.device.type == "cuda":
+        return flash_ops.flash_attention(q, k, v, causal=True,
+                                         window=cfg.window,
+                                         softcap=cfg.logit_softcap)
+    cfg = dataclasses.replace(cfg, n_heads=q.shape[2], n_kv_heads=k.shape[2])
+    if impl == "chunked" and S > q_chunk:
+        return _attn_chunked(q, k, v, cfg, min(q_chunk, S), min(kv_chunk, S))
+    return _attn_dense(q, k, v, cfg)
+
+
+def _mha_train_sharded(attn: Attention, x, positions, impl, q_chunk,
+                       kv_chunk):
+    """`mha_train` under a mesh: x (B, S/n, D) this rank's positions of
+    the residual stream → the same layout (module doc)."""
+    cfg = attn.cfg
+    x = constrain(x, "batch", "seq", "embed", src=RESIDUAL)
+    B, S, _ = x.shape
+    if _tp_attention(cfg.n_heads):
+        q, k, v = _project_qkv(attn, x, positions)
+        k, v = _kv_for_local_heads(k, v, cfg, q.shape[2])
+        # reference: q / k / v constrained to ("batch", None, "heads"), the
+        # column shards' heads — the layout the local products give
+        out = _attention(q, k, v, cfg, impl, q_chunk, kv_chunk)
+        out = constrain(out, "batch", None, "heads", None)
+        return row_parallel(attn.wo, out.reshape(B, S, -1))
+    wq, wk, wv = (all_gather(lin.weight, 0) if lin.weight.shape[0]
+                  < lin.out_dim else lin.weight
+                  for lin in (attn.wq, attn.wk, attn.wv))
+    q, k, v = _project_qkv(attn, x, positions, (wq, wk, wv))
+    out = _attention(q, k, v, cfg, impl, q_chunk, kv_chunk)
+    out = constrain(out, "batch", "residual", None, None,
+                    src=("batch", "seq", None, None))
+    wo = attn.wo.weight
+    if wo.shape[1] < attn.wo.in_dim:
+        wo = all_gather(wo, 1)
+    return dense_apply(wo, out.reshape(B, out.shape[1], -1),
+                       dtype=attn.wo.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +311,8 @@ def mha_decode(attn: Attention, cache: Cache, x: torch.Tensor,
     the whole cache is plain torch, as the reference computes it outside
     any kernel."""
     cfg = attn.cfg
+    if current_mesh() is not None:
+        raise NotImplementedError("decoding under a mesh is not ported")
     B = x.shape[0]
     q = attn.wq(x).reshape(B, cfg.n_heads, cfg.head_dim)
     k = attn.wk(x).reshape(B, cfg.n_kv_heads, cfg.head_dim)

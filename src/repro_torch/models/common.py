@@ -26,9 +26,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .sharding import constrain
+
+# the residual stream's logical axes: under a mesh its sequence is split
+# over the model axis (Megatron-SP)
+RESIDUAL = ("batch", "residual", "embed")
+
 __all__ = ["Dense", "RMSNorm", "for_serving", "round_for_serving",
-           "dense_apply", "rmsnorm_apply", "embed_apply", "rotary_embedding",
-           "apply_rope", "softcap", "silu", "count_params", "normal_"]
+           "RESIDUAL", "dense_apply", "row_parallel", "rmsnorm_apply",
+           "embed_apply", "rotary_embedding", "apply_rope", "softcap", "silu",
+           "count_params", "normal_"]
 
 
 def normal_(t: torch.Tensor, scale: float, generator: torch.Generator
@@ -98,6 +105,19 @@ class RMSNorm(nn.Module):
         return rmsnorm_apply(self.scale, x)
 
 
+def row_parallel(lin: Dense, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel dense layer (its weight's input columns split over
+    the model axis) into the residual stream's layout.  Each rank's
+    partial product is taken in f32 of the ``dtype``-rounded operands, the
+    partial sums are reduce-scattered in f32 and rounded once, as the
+    whole product rounds once; on a model axis of one (or no mesh) it is
+    ``lin(x)``."""
+    if lin.weight.shape[1] == lin.in_dim:
+        return constrain(lin(x), *RESIDUAL, partial="model")
+    y = F.linear(x.to(lin.dtype).float(), lin.weight.to(lin.dtype).float())
+    return constrain(y, *RESIDUAL, partial="model").to(lin.dtype)
+
+
 def dense_apply(weight: torch.Tensor, x: torch.Tensor, *,
                 dtype=torch.bfloat16) -> torch.Tensor:
     """``x.astype(dtype) @ kernel.astype(dtype)`` with ``weight`` = kernelᵀ."""
@@ -114,7 +134,9 @@ def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor, *,
 
 def embed_apply(table: torch.Tensor, ids: torch.Tensor, *,
                 dtype=torch.bfloat16) -> torch.Tensor:
-    return table.to(dtype)[ids]
+    """The rows of ``ids``; the reference's constrain to (batch, seq,
+    embed) is the layout of ``ids`` (the rank's rows of the batch)."""
+    return constrain(table.to(dtype)[ids], "batch", "seq", "embed")
 
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int,

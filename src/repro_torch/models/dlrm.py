@@ -30,6 +30,7 @@ from torch import nn
 from .common import for_serving
 from .embedding import embedding_bag_apply
 from .gnn.common import MLP, mlp_apply
+from .sharding import constrain
 
 __all__ = ["DLRMConfig", "DLRM", "dlrm_init", "dlrm_apply", "dlrm_loss",
            "retrieval_score"]
@@ -106,9 +107,11 @@ def dlrm_apply(model: DLRM, dense: torch.Tensor,
                sparse_idx: torch.Tensor) -> torch.Tensor:
     """dense: (B, 13) float; sparse_idx: (B, 26, n_hot) int32 → (B,) bf16
     logits."""
-    bot = mlp_apply(model.bot, dense.to(torch.bfloat16), act=torch.relu,
+    dense = constrain(dense.to(torch.bfloat16), "batch", None)
+    bot = mlp_apply(model.bot, dense, act=torch.relu,
                     final_act=True)                         # (B, D)
     vecs = torch.cat([bot[:, None], _lookups(model, sparse_idx)], dim=1)
+    vecs = constrain(vecs, "batch", None, "feature")
     feat = torch.cat([_interact(vecs), bot], dim=-1)
     logit = mlp_apply(model.top, feat, act=torch.relu)
     return logit[:, 0]

@@ -18,6 +18,7 @@ import torch
 
 from ..kernels.embedding_bag.ops import embedding_bag
 from .common import normal_
+from .sharding import extent
 
 __all__ = ["embedding_bag_init", "embedding_bag_apply"]
 
@@ -35,5 +36,12 @@ def embedding_bag_apply(table: torch.Tensor, idx: torch.Tensor,
                         dtype=torch.bfloat16) -> torch.Tensor:
     """idx (B, H) int32 bags (pad −1) of an (R, D) table → (B, D) in
     ``dtype``; or idx (B, T, H) of a (T, R, D) stack → (B, T, D), one
-    kernel launch for all T.  combiner ∈ {sum, mean}."""
+    kernel launch for all T.  combiner ∈ {sum, mean}.
+
+    The reference constrains the table to ("table_rows", "feature"): rows
+    over the model axis.  A row-sharded lookup is not ported (DLRM trains
+    and serves without a mesh), so a mesh that splits the rows raises."""
+    if extent("table_rows") > 1:
+        raise NotImplementedError("a row-sharded embedding-bag lookup is "
+                                  "not ported; run DLRM without a mesh")
     return embedding_bag(table.to(dtype), idx, weights, combiner=combiner)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..common import Dense, silu
+from ..sharding import constrain
 
 __all__ = ["GraphBatch", "scatter_sum", "scatter_mean", "scatter_max",
            "gather", "spread_padding", "segment_pool", "MLP", "mlp_init",
@@ -52,7 +53,7 @@ def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
     msg = torch.where(mask[:, None], messages, torch.zeros_like(messages))
     out = torch.zeros((n_nodes, messages.shape[-1]), dtype=messages.dtype,
                       device=messages.device)
-    return out.index_add_(0, dst.long(), msg)
+    return constrain(out.index_add_(0, dst.long(), msg), "nodes", "hidden")
 
 
 def scatter_mean(messages: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,

@@ -18,7 +18,12 @@ another order moves outputs by more than rounding.  Everything else is
 a gather, a sort or a scatter to distinct slots, so a second call gives
 the same bytes.
 
-Sharding (``constrain``) has no counterpart on one card (ROADMAP).
+Under a mesh the experts are split over the model axis (the reference's
+EP rule): every rank gathers the sequence, routes the whole rows (the
+router is replicated), runs its own experts' slots and adds their
+contributions; the partial sums are reduce-scattered onto the sequence.
+The aux loss's statistics are summed over the data ranks, so that it is
+the global batch's.
 """
 from __future__ import annotations
 
@@ -30,7 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import normal_, silu
+from .common import RESIDUAL, normal_, silu
+from .sharding import (axis_index, constrain, current_mesh, extent,
+                       psum_logical)
 
 __all__ = ["MoEConfig", "capacity", "MoE", "Route"]
 
@@ -139,6 +146,7 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, S, D) → (y, aux_loss).  SwiGLU experts."""
         cfg = self.cfg
+        x = constrain(x, "batch", "seq", "embed", src=RESIDUAL)
         B, S, D = x.shape
         K, E = cfg.top_k, cfg.n_experts
         C = capacity(cfg, S)
@@ -152,22 +160,45 @@ class MoE(nn.Module):
         xe = torch.gather(x, 1, src)
         xe = torch.where(filled, xe, torch.zeros((), dtype=dt, device=x.device)
                          ).reshape(B, E, C, D)
+        # this rank's experts (all of them without a mesh)
+        xe = constrain(xe, "batch", "expert", None, None,
+                       src=("batch", None, None, None))
+        El = xe.shape[1]
+        first = 0 if El == E else axis_index(current_mesh(), "model") * El
         h = torch.einsum("becd,edf->becf", xe, self.wi.to(dt))
         g = torch.einsum("becd,edf->becf", xe, self.wg.to(dt))
         ye = torch.einsum("becf,efd->becd", silu(g) * h, self.wo.to(dt))
-        contrib = (ye.reshape(B, E * C, D)
-                   * r.gate_of_slot[..., None].to(dt)
-                   * filled.to(dt))
-        # row E·C of the padded table is zero: a dropped assignment adds 0
+        ye = constrain(ye, "batch", "expert", None, None)
+        lo, hi = first * C, (first + El) * C
+        contrib = (ye.reshape(B, El * C, D)
+                   * r.gate_of_slot[:, lo:hi, None].to(dt)
+                   * filled[:, lo:hi].to(dt))
+        # row El·C of the padded table is zero: a dropped assignment (or
+        # another rank's expert) adds 0
         contrib = torch.cat([contrib, contrib.new_zeros(B, 1, D)], dim=1)
-        y = torch.zeros((B, S, D), dtype=dt, device=x.device)
+        slots = r.slots
+        if El != E:
+            # this rank's experts' part, added in f32: the ranks' parts are
+            # summed in f32 and rounded once
+            slots = torch.where((slots >= lo) & (slots < hi), slots - lo,
+                                El * C)
+            contrib = contrib.float()
+        y = torch.zeros((B, S, D), dtype=contrib.dtype, device=x.device)
         for k in range(K):
-            at = r.slots[:, :, k, None].expand(B, S, D)
+            at = slots[:, :, k, None].expand(B, S, D)
             y = y + torch.gather(contrib, 1, at)
+        y = constrain(y, *RESIDUAL, partial="model").to(dt)
 
-        # Switch-style load-balancing aux loss
-        me = r.probs.mean(dim=(0, 1))                         # (E,)
-        fe_frac = r.counts.sum(0).float() / (B * S * K)
+        # Switch-style load-balancing aux loss, over the global batch
+        n_data = extent("batch")
+        if n_data == 1:
+            me = r.probs.mean(dim=(0, 1))                     # (E,)
+            counts = r.counts.sum(0)
+        else:
+            me = psum_logical(r.probs.sum(dim=(0, 1)), "batch") / (
+                B * S * n_data)
+            counts = psum_logical(r.counts.sum(0), "batch")
+        fe_frac = counts.float() / (B * S * K * n_data)
         aux = E * torch.sum(me * fe_frac)
         self.last_dropped = B * S * K - filled.sum()
         return y, aux

@@ -22,6 +22,21 @@ weights, experts and embedding rounded once, frozen, and is built one
 layer at a time (drawn in f32, rounded, the f32 copy freed), so that its
 peak is the rounded weights plus one layer in f32.  `transformer_apply` and `lm_loss` run under autograd; serving
 enters ``torch.inference_mode()`` at its own call sites.
+
+Under a mesh (``models.sharding``, the reference's constrain points) each
+rank holds its shards (`transformer_init_sharded`, or
+``sharding.shard_parameters_`` of a whole model) and its rows of the
+batch; the residual stream is split over the model axis along the
+sequence (Megatron-SP).  The embedding's vocabulary rows are split: each
+rank looks up the tokens in its slice and the partial sums are
+reduce-scattered onto the sequence; attention, the FFN (column-parallel
+wi / wg, row-parallel wo) and the MoE (experts split) gather the sequence
+and reduce-scatter their partial sums back; the logits keep the rank's
+vocabulary slice and `lm_loss` reduces ``logsumexp`` and the gold logit
+over the model axis (``sharding.vocab_parallel_xent``).  `lm_loss`
+returns the rank's share of the global loss: its rows' mean over the
+data ranks' count, so that the step's data-axis sum is the global mean.
+A 1×1 mesh computes exactly what no mesh does.
 """
 from __future__ import annotations
 
@@ -41,20 +56,24 @@ from .attention import (
     mha_train,
 )
 from .common import (
+    RESIDUAL,
     Dense,
     RMSNorm,
     embed_apply,
     for_serving,
     normal_,
     round_for_serving,
+    row_parallel,
     silu,
     softcap,
 )
 from .moe import MoE, MoEConfig
+from .sharding import (axis_index, constrain, current_mesh, extent,
+                       scale_grad, shard_parameters_, vocab_parallel_xent)
 
 __all__ = ["TransformerConfig", "Transformer", "transformer_init",
-           "transformer_apply", "lm_loss", "init_decode_cache",
-           "transformer_decode"]
+           "transformer_init_sharded", "transformer_apply", "lm_loss",
+           "init_decode_cache", "transformer_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +169,9 @@ class FFN(nn.Module):
         self.wo = Dense(cfg.d_ff, cfg.d_model, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(silu(self.wg(x)) * self.wi(x))
+        x = constrain(x, "batch", "seq", "embed", src=RESIDUAL)
+        h = constrain(silu(self.wg(x)) * self.wi(x), "batch", "seq", "mlp")
+        return row_parallel(self.wo, h)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for lin in (self.wi, self.wg, self.wo):
@@ -186,6 +207,8 @@ class Block(nn.Module):
 
     def forward(self, x, positions, cfg: TransformerConfig,
                 cache: Optional[Cache] = None):
+        # under a mesh x, the attention's and the FFN's outputs all hold
+        # the residual layout (the reference's constrain of x + a, x + f)
         x = x + mha_train(self.attn, self.ln_attn(x), positions,
                           impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk, cache=cache)
@@ -254,17 +277,53 @@ def transformer_init(cfg: TransformerConfig, generator: torch.Generator, *,
     return for_serving(model)
 
 
+def transformer_init_sharded(cfg: TransformerConfig,
+                             generator: torch.Generator, specs, mesh, *,
+                             device=None) -> Transformer:
+    """A training model holding this rank's shards of the parameters
+    ``specs`` (name → partition spec) lays out over ``mesh``: the draws of
+    `transformer_init` with ``train``, module by module (built on the meta
+    device, each module materialised, drawn and cut to its shard before
+    the next), so that the peak is the shards plus one whole module."""
+    if device is None:
+        device = torch.get_default_device()
+    model = Transformer(cfg, device="meta")
+    model.to_empty(device=device, recurse=False)          # the embedding
+    normal_(model.embed, 1.0, generator)
+    shard_parameters_(model, specs, mesh, recurse=False)
+    for i, blk in enumerate(model.layers):
+        blk.to_empty(device=device)
+        blk.reset_parameters(generator)
+        shard_parameters_(blk, specs, mesh, prefix=f"layers.{i}.")
+    model.ln_final.to_empty(device=device)
+    model.ln_final.reset_parameters()
+    return model
+
+
 def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
-    x = embed_apply(model.embed, tokens, dtype=cfg.dtype)
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+    mesh = current_mesh()
+    if mesh is None or model.embed.shape[0] == cfg.vocab:
+        x = embed_apply(model.embed, tokens, dtype=cfg.dtype) * scale
+        return constrain(x, *RESIDUAL, src=("batch", "seq", "embed"))
+    # this rank's vocabulary rows: its tokens' rows, zeros for the others'
+    # (one rank holds each token, so the reduce-scatter sums exactly)
+    rows = model.embed.shape[0]
+    ids = tokens.long() - axis_index(mesh, "model") * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = embed_apply(model.embed, torch.where(mine, ids, 0), dtype=cfg.dtype)
+    x = torch.where(mine[..., None], x * scale, torch.zeros((), dtype=x.dtype))
+    return constrain(x, *RESIDUAL, partial="model")
 
 
 def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits (this rank's vocabulary slice under a mesh)."""
     cfg = model.cfg
-    x = model.ln_final(x)
+    x = constrain(model.ln_final(x), "batch", "seq", "embed", src=RESIDUAL)
     logits = torch.einsum("bsd,vd->bsv", x, model.embed.to(cfg.dtype))
-    return softcap(logits, cfg.final_softcap)
+    return constrain(softcap(logits, cfg.final_softcap), "batch", "seq",
+                     "vocab")
 
 
 def transformer_apply(model: Transformer, tokens: torch.Tensor,
@@ -290,12 +349,22 @@ def transformer_apply(model: Transformer, tokens: torch.Tensor,
 def lm_loss(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor,
             *, aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token cross-entropy: f32 logits, ``logsumexp − gold``, plus
-    ``aux_weight · aux`` (the reference's ``lm_loss``)."""
+    ``aux_weight · aux`` (the reference's ``lm_loss``).  Under a mesh the
+    rank's share of it (module doc)."""
     logits, aux = transformer_apply(model, tokens)
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return (logz - gold).mean() + aux_weight * aux
+    if logits.shape[-1] == model.cfg.vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        xent = logz - gold
+    else:
+        xent = vocab_parallel_xent(logits, targets)
+    loss = xent.mean()
+    n_data, n_model = extent("batch"), extent("residual")
+    if n_model > 1:     # every model rank computes the same aux loss
+        aux = scale_grad(aux, 1.0 / n_model)
+    loss = loss + aux_weight * aux
+    return loss / n_data if n_data > 1 else loss
 
 
 def init_decode_cache(cfg: TransformerConfig, batch: int, max_seq: int, *,

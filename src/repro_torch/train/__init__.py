@@ -1,3 +1,4 @@
-"""Training utilities of the port: AdamW (`optimizer`), atomic checkpoints
-(`checkpoint`), the step guard, heartbeat and `resume_or_init`
-(`elastic`)."""
+"""Training utilities of the port: AdamW and ZeRO-1 specs (`optimizer`),
+the train step (`step`), atomic checkpoints (`checkpoint`), int8 gradient
+compression (`compression`), the step guard, heartbeat, `best_mesh` and
+`resume_or_init` (`elastic`)."""

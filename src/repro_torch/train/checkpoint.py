@@ -309,7 +309,7 @@ def _save_once(root, step: int, tree, *, extra, keep_last: int,
             np.save(fpath, arr)
             manifest["leaves"].append({
                 "shape": list(arr.shape), "dtype": str(arr.dtype),
-                "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes()),
+                "crc32": zlib.crc32(np.ascontiguousarray(arr)),
             })
             _fire("save.array_write", path=fpath, step=step)
         (tmp / "manifest.json").write_text(json.dumps(manifest))
@@ -425,16 +425,20 @@ def latest_step(root) -> Optional[int]:
 
 
 def restore(root, tree_like, *, step: Optional[int] = None,
-            device=None, verify: bool = True
+            device=None, shardings=None, verify: bool = True
             ) -> Tuple[Any, Dict[str, Any], int]:
     """Restore into the structure of ``tree_like`` (shapes must match).
 
     ``tree_like``'s leaves are anything with a ``shape`` (tensors, arrays,
     `LeafSpec`).  Leaves come back as torch tensors on ``device`` (the CPU
-    when None).  ``verify`` checks each array against its manifest CRC-32
-    (format-v2 checkpoints; v1 manifests without CRCs load unverified) and
-    raises `CorruptCheckpointError` on a mismatch.  Returns
-    (tree, extra, step).
+    when None).  ``shardings``: an optional tree like ``tree_like`` of
+    ``models.sharding.NamedSharding`` (None for a whole leaf): each leaf
+    is cut to this rank's shard before it moves to ``device`` — the
+    stored arrays are whole, whatever mesh wrote them, so a restore onto
+    another mesh needs no other format.  ``verify`` checks each array
+    against its manifest CRC-32 (format-v2 checkpoints; v1 manifests
+    without CRCs load unverified) and raises `CorruptCheckpointError` on
+    a mismatch.  Returns (tree, extra, step).
     """
     root = Path(root)
     if step is None:
@@ -452,8 +456,12 @@ def restore(root, tree_like, *, step: Optional[int] = None,
     if manifest["n_leaves"] != len(leaves_like):
         raise ValueError(f"leaf count mismatch: ckpt {manifest['n_leaves']} "
                          f"vs tree {len(leaves_like)}")
+    sh_leaves = (tree_flatten(shardings)[0] if shardings is not None
+                 else [None] * len(leaves_like))
+    if len(sh_leaves) != len(leaves_like):
+        raise ValueError("shardings must have one entry a leaf")
     out = []
-    for i, like in enumerate(leaves_like):
+    for i, (like, sh) in enumerate(zip(leaves_like, sh_leaves)):
         try:
             arr = np.load(d / f"arr_{i:05d}.npy")
         except (OSError, ValueError) as e:
@@ -464,13 +472,15 @@ def restore(root, tree_like, *, step: Optional[int] = None,
             raise ValueError(f"leaf {i}: shape {arr.shape} != expected {want}")
         stored_crc = manifest["leaves"][i].get("crc32")
         if verify and stored_crc is not None:
-            got_crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
+            got_crc = zlib.crc32(np.ascontiguousarray(arr))
             if got_crc != stored_crc:
                 raise CorruptCheckpointError(
                     f"{d}: leaf {i} CRC mismatch "
                     f"(stored {stored_crc:#010x}, got {got_crc:#010x}) — "
                     f"silent corruption")
         t = torch.from_numpy(arr)
+        if sh is not None:
+            t = sh.shard(t)
         out.append(t if device is None else t.to(device))
     tree = tree_unflatten(treedef, out)
     return tree, manifest.get("extra", {}), step

@@ -1,5 +1,10 @@
-"""Failure handling for the host training loop (``repro.train.elastic`` on
-PyTorch; its mesh helper ``best_mesh`` comes with the port's sharding).
+"""Elastic scaling and failure handling for the host training loop
+(``repro.train.elastic`` on PyTorch).
+
+  * Checkpoints hold whole logical leaves whatever the mesh, so recovery
+    after losing ranks is: build the largest feasible mesh from the
+    survivors (`best_mesh`), then ``restore(..., shardings=new)`` — no
+    format change (`resume_or_init`).
 
   * The step loop runs under `StepGuard`: a wall-clock budget per step; a
     straggling or hung step raises `StragglerTimeout` so that the runner
@@ -21,12 +26,34 @@ import os
 import signal
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
+from ..launch.mesh import make_mesh_for_devices, world_size
 from . import checkpoint as ckpt
 
-__all__ = ["StragglerTimeout", "StepGuard", "uninterruptible",
-           "HeartbeatFile", "resume_or_init"]
+__all__ = ["best_mesh_shape", "best_mesh", "StragglerTimeout", "StepGuard",
+           "uninterruptible", "HeartbeatFile", "resume_or_init"]
+
+
+def best_mesh_shape(n_devices: int, *, prefer_model: int = 16
+                    ) -> Tuple[int, int]:
+    """(data, model) of the largest mesh over ``n_devices`` ranks: the
+    model axis is the largest power of two that divides n and is at most
+    ``prefer_model``, data gets the rest."""
+    model = 1
+    while model * 2 <= prefer_model and n_devices % (model * 2) == 0:
+        model *= 2
+    return n_devices // model, model
+
+
+def best_mesh(n_devices: Optional[int] = None, *, prefer_model: int = 16,
+              device_type=None):
+    """The `best_mesh_shape` ``("data", "model")`` mesh over the process
+    group's ranks (``n_devices`` defaults to the world size and must
+    equal it)."""
+    n = n_devices if n_devices is not None else world_size()
+    _, model = best_mesh_shape(n, prefer_model=prefer_model)
+    return make_mesh_for_devices(n, model, device_type=device_type)
 
 
 class StragglerTimeout(RuntimeError):
@@ -94,12 +121,15 @@ class HeartbeatFile:
         return time.time() - self.path.stat().st_mtime
 
 
-def resume_or_init(ckpt_dir, init_fn, tree_like, device=None):
-    """Restore the latest committed checkpoint onto ``device``, or
-    initialize fresh.  Returns (state, extra, start_step)."""
+def resume_or_init(ckpt_dir, init_fn, tree_like, shardings=None,
+                   device=None):
+    """Restore the latest committed checkpoint onto ``device`` (each leaf
+    cut to this rank's shard by ``shardings``, possibly another mesh than
+    the writer's), or initialize fresh.  Returns (state, extra,
+    start_step)."""
     step = ckpt.latest_step(ckpt_dir)
     if step is None:
         return init_fn(), {}, 0
     state, extra, step = ckpt.restore(ckpt_dir, tree_like, step=step,
-                                      device=device)
+                                      device=device, shardings=shardings)
     return state, extra, step + 1

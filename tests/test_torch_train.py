@@ -38,7 +38,8 @@ by `_exact`.  Tolerances:
     near 0 flips a weight by 2·lr);
   * the CLI: each logged loss within 0.01 relative of the reference CLI's
     (the same weights, the same stream; later steps add the parameter
-    drift above);
+    drift above), the reference CLI run once a session
+    (`ref_cli_losses`, which the sharded CLI's test shares);
   * resume: a run cut by ``--step-budget-s`` (exit 75) and resumed ends
     on the parameters and moments of an uninterrupted run, bit for bit.
 """
@@ -80,7 +81,7 @@ from repro_torch.models.dlrm import dlrm_loss
 from repro_torch.models.transformer import lm_loss
 from repro_torch.runtime import faults
 from repro_torch.testing.parity import agg_inputs, bag_inputs
-from repro_torch.testing.shared import SharedParts
+from repro_torch.testing.shared import SharedParts, shared_result
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.step import trainable_params
 
@@ -523,9 +524,27 @@ def _seed_port_checkpoint(ckpt_dir, steps=6):
               extra={"data_step": 0})
 
 
-def test_cli_losses_match_reference_cli(tmp_path, capsys):
-    assert j_train_cli.main(CLI + ["--ckpt-dir", str(tmp_path / "j")]) == 0
-    want = _losses(capsys.readouterr().out)
+def _reference_cli_losses(work):
+    """The reference CLI's loss lines on `CLI`, {step: loss}."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert j_train_cli.main(CLI + ["--ckpt-dir", str(work / "j")]) == 0
+    return _losses(buf.getvalue())
+
+
+@pytest.fixture(scope="module")
+def ref_cli_losses(tmp_path_factory):
+    """The reference CLI's run once for the test session (`shared_result`;
+    ``tests/test_torch_sharding.py`` reads it too)."""
+    return shared_result(tmp_path_factory, "torch-train-ref-cli",
+                         _reference_cli_losses)
+
+
+def test_cli_losses_match_reference_cli(tmp_path, capsys, ref_cli_losses):
+    want = ref_cli_losses
     _seed_port_checkpoint(tmp_path / "t")
     assert t_train_cli.main(CLI + ["--ckpt-dir", str(tmp_path / "t"),
                                    "--device", "cpu"]) == 0
@@ -577,9 +596,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(SystemExit, match="LM archs"):
         t_train_cli.main(["--arch", "dlrm-rm2", "--device", "cpu",
                           "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="sharding"):
-        t_train_cli.main(["--model-parallel", "2", "--device", "cpu",
-                          "--ckpt-dir", str(tmp_path)])
+    # one process, no group: a (1/2, 2) mesh fails the reference's
+    # assertion, in both trainers (sharded runs: test_torch_sharding.py)
+    for cli, extra in ((j_train_cli, []), (t_train_cli, ["--device", "cpu"])):
+        with pytest.raises(AssertionError):
+            cli.main(["--model-parallel", "2", "--reduced", "--ckpt-dir",
+                      str(tmp_path / "mp2")] + extra)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             t_train_cli.main(["--reduced", "--ckpt-dir", str(tmp_path)])
