@@ -104,8 +104,12 @@ line):
                (Reddit's 232 965 vertices, 114 615 892 directed edges),
                block 0 of the port's sampler (1 024 seeds, fanout 15-10),
                the forward loss on the card; counts zeroed just before and
-               read just after, two gather-aggregate launches per forward;
-               logits equal to the same forward with the plain aggregate;
+               read just after, two gather-aggregate launches over CSR
+               segments per forward (GraphSAGE's path; the padded layout
+               none); logits equal to the same forward with the plain CSR
+               aggregate; the kernel at layer 0 over the padded table
+               equal to its plain version and, over the block's CSR, to
+               the padded layout's bytes;
                then train-gnn: SAGE_TRAIN_STEPS train steps (loss, grads,
                AdamW) over the sampler's blocks 0.., counts zeroed and
                read around them (two aggregates and one transpose a
@@ -130,6 +134,32 @@ line):
                aggregate; at molecule the card against a CPU copy
                (`parity.gnn_card_against_cpu`; graphcast at 2 layers);
                prints losses, median step ms and peak memory;
+  8c. train-gnn-ogb — graphsage-reddit on ogb_products at full size
+               (an R-MAT stand-in with exactly 2 449 029 nodes and
+               61 859 140 directed edges, d_feat 100, 47 classes; the
+               host build timed), aggregated over CSR segments (no padded
+               table: hub in-degrees of tens of thousands): the in-degree's
+               max, p99 and empty share, the CSR builds, `OGB_STEPS` train
+               steps with counts zeroed just before and read just after
+               (two aggregates and one transpose a step), every loss
+               finite and the batch's loss falling by more than the spread
+               of its readings, the median step and peak; the logits equal
+               to the same forward with the plain CSR aggregate; the
+               aggregate timed at F 100 and 128 and the transpose at 128,
+               each beside its bound and ``torch.sparse.mm`` on the same
+               CSR; the transpose held to autograd of the plain CSR
+               forward on f32 copies over the rows around the largest hub
+               (`AGG_T_TOL`), launched twice (identical bytes);
+  8d. graphcast-remat — graphcast at full width, 4 layers, on molecule and
+               full_graph_sm with its processor blocks recomputed (the
+               default ``REPRO_REMAT_POLICY`` full): a loss-and-gradient
+               pass under full and under none (each one's peak) against a
+               CPU copy's — at molecule the loss within
+               ``parity.GNN_OUT_TOL``, each gradient within 0.05·max|g|
+               and the outputs (`parity.gnn_card_against_cpu`); at
+               full_graph_sm, whose 274-degree hub the card's bf16 atomics
+               round add by add, the gaps printed — then 4 train steps
+               with finite losses;
   9. kernels — mining kernels vs plain versions again on real blocks of the
                mico graph at the main path's shapes (the frontier's hub
                block at level 2 also by pass, with its random loads and
@@ -166,16 +196,25 @@ line):
  11. train   — train-lm: the trainer CLI (``repro_torch.launch.train``)
                at qwen3-1.7b's full width and depth, `TRAIN_FLAGS` (8
                steps of batch 4 × 1 024, cut from train_4k), counts
-               zeroed and read around it (flash forward and backward once
-               a layer a step, AdamW once a parameter a step), a falling
-               loss, its step time, tokens/s,
+               zeroed and read around it (flash forward twice a layer a
+               step — qwen3-1.7b sets remat, so under the default
+               ``REPRO_REMAT_POLICY`` full the backward reruns each
+               layer's forward —, the backward once a layer a step, AdamW
+               once a parameter a step), a falling loss, its step time,
+               tokens/s,
                peak memory and the ~21 GB final checkpoint (deleted
                after); then the flash backward timed at the per-layer
                shape (held against autograd of the plain version there;
                SDPA's backward beside it under one pinned backend)
                and AdamW at the embedding leaf (bit for bit against its
                plain version there; ``torch._fused_adamw_`` timed beside
-               it, there and over all leaves).  train-resume, in a child
+               it, there and over all leaves).  train-lm-remat: the same
+               flags under ``REPRO_REMAT_POLICY`` dots and none (no final
+               checkpoint), counts zeroed and read around each; with
+               train-lm (full) the three runs' losses — the floats the
+               steps returned — must be equal bit for bit and full's peak
+               below none's; prints the median steps, peaks, losses and
+               flash launches a step.  train-resume, in a child
                process with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (the other
                phases keep cuBLAS's default workspace): the same width at
                2 layers under
@@ -205,7 +244,10 @@ line):
                1 (NCCL) at the same depth: losses within `SHARDED_TOL`,
                each rank's peak below world size 1's, and every rank
                launching the flash forward, backward and AdamW (neither
-               run writes its final checkpoint: nothing reads it);
+               run writes its final checkpoint: nothing reads it); both
+               runs recompute (``REPRO_REMAT_POLICY`` full, the default),
+               so the recomputation reruns ``constrain``'s collectives
+               inside the backward, on every rank in the same order;
  12. distributed — the distributed plane through the CLI under
                ``torchrun --standalone`` (each rank `phase_dist_rank`:
                launch counts zeroed before the CLI and read after it,
@@ -651,7 +693,7 @@ def _counters() -> dict:
         flash_attention_bwd_bhsd,
     )
     from repro_torch.kernels.gather_aggregate.kernel import (
-        gather_aggregate_nf, gather_aggregate_t_nf,
+        gather_aggregate_csr_nf, gather_aggregate_nf, gather_aggregate_t_nf,
     )
 
     return {"frontier_expand": frontier_expand,
@@ -659,6 +701,8 @@ def _counters() -> dict:
             "flash_attention": flash_attention_bhsd,
             "embedding_bag": embedding_bag_tbh,
             "gather_aggregate": gather_aggregate_nf,
+            # the same kernel over CSR segments (GraphSAGE's path)
+            "gather_aggregate_csr": gather_aggregate_csr_nf,
             "flash_attention_bwd": flash_attention_bwd_bhsd,
             "embedding_bag_bwd": embedding_bag_bwd_tbh,
             "gather_aggregate_t": gather_aggregate_t_nf,
@@ -1251,7 +1295,8 @@ def phase_bag_agg_parity(dev) -> dict:
     """The embedding-bag and gather-aggregate kernels against their plain
     versions on the parity cases; the worst error of each."""
     from repro_torch.testing.parity import (
-        AGG_CASES, AGG_TOL, BAG_CASES, BAG_TOL, agg_case, bag_case,
+        AGG_CASES, AGG_CSR_CASES, AGG_TOL, BAG_CASES, BAG_TOL, agg_case,
+        agg_csr_case, bag_case,
     )
 
     worst = {"embedding_bag": 0.0, "gather_aggregate": 0.0}
@@ -1266,6 +1311,12 @@ def phase_bag_agg_parity(dev) -> dict:
     _log(f"parity: gather_aggregate == plain on {len(AGG_CASES)} cases "
          f"(atol = rtol = {AGG_TOL}); max_abs_err="
          f"{worst['gather_aggregate']:.3g}")
+    csr = max(agg_csr_case(case, dev) for case in AGG_CSR_CASES)
+    worst["gather_aggregate"] = max(worst["gather_aggregate"], csr)
+    _log(f"parity: gather_aggregate over CSR segments == the padded "
+         f"layout's bytes and == plain on {len(AGG_CSR_CASES)} cases (F 7 "
+         f"to 1 433, stars of one 5 000-id row; atol = rtol = {AGG_TOL}); "
+         f"max_abs_err={csr:.3g}")
     return worst
 
 
@@ -1425,9 +1476,15 @@ def phase_gnn(dev) -> tuple:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.sampler import block_graph_batch
-    from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
-    from repro_torch.kernels.gather_aggregate.ops import in_neighbor_table
-    from repro_torch.kernels.gather_aggregate.ref import gather_aggregate_ref
+    from repro_torch.kernels.gather_aggregate.kernel import (
+        gather_aggregate_csr_nf, gather_aggregate_nf,
+    )
+    from repro_torch.kernels.gather_aggregate.ops import (
+        in_csr, in_neighbor_table,
+    )
+    from repro_torch.kernels.gather_aggregate.ref import (
+        gather_aggregate_csr_ref, gather_aggregate_ref,
+    )
     from repro_torch.models.gnn import graphsage
 
     arch = get_arch("graphsage-reddit")
@@ -1473,22 +1530,24 @@ def phase_gnn(dev) -> tuple:
     loss = forward()
     torch.cuda.synchronize()
     forwards = SAGE_REPS + 2
-    launches = _read_counts()["gather_aggregate"]
+    counts = _read_counts()
+    launches = counts["gather_aggregate_csr"]
     peak = torch.cuda.max_memory_allocated()
     _log(f"gnn: graphsage-reddit {shape} forward_ms={ms:.3f} "
          f"loss={float(loss):.6f} max_memory_allocated={peak} "
-         f"gather_aggregate launches={launches} over {forwards} forwards")
-    if launches != 2 * forwards:
+         f"gather_aggregate launches over CSR segments={launches} over "
+         f"{forwards} forwards")
+    if launches != 2 * forwards or counts["gather_aggregate"]:
         raise AssertionError(f"every forward must launch the gather-"
-                             f"aggregate twice: {launches} launches, "
+                             f"aggregate over CSR segments twice: {counts}, "
                              f"{forwards} forwards")
     if not torch.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss}")
 
     with torch.inference_mode():
         got = graphsage.sage_apply(model, gb).float()
-        with mock.patch.object(graphsage, "gather_aggregate",
-                               gather_aggregate_ref):
+        with mock.patch.object(graphsage, "gather_aggregate_csr",
+                               gather_aggregate_csr_ref):
             want = graphsage.sage_apply(model, gb).float()
     # the same bf16 inputs, f32 sums in the same order and one rounding:
     # the aggregates, and so the logits, must be equal
@@ -1497,7 +1556,8 @@ def phase_gnn(dev) -> tuple:
         raise AssertionError(f"sage logits differ from the plain aggregate's "
                              f"by up to {err} (max |logit| "
                              f"{float(want.abs().max()):.4g})")
-    _log(f"gnn: logits == the same forward with the plain aggregate (exact; "
+    _log(f"gnn: logits == the same forward with the plain CSR aggregate "
+         f"(exact; "
          f"max |logit| {float(want.abs().max()):.4g})")
 
     # the kernel at layer 0 of the block, timed
@@ -1509,6 +1569,19 @@ def phase_gnn(dev) -> tuple:
     if not torch.equal(k_out, p_out):
         raise AssertionError(f"gather_aggregate at layer 0 differs from its "
                              f"plain version by up to {k_err}")
+    # the same rows as CSR segments: the same kernel, the same bytes
+    indptr, src = in_csr(gb.edge_src, gb.edge_dst, gb.edge_mask, N)
+    c_out = gather_aggregate_csr_nf(h, indptr, src, mean=True)
+    if not torch.equal(c_out, k_out):
+        raise AssertionError(
+            f"gather_aggregate over CSR segments differs from the padded "
+            f"table's at layer 0 by up to "
+            f"{float((c_out.float() - k_out.float()).abs().max())}")
+    csr_ms = _time_ms(lambda: gather_aggregate_csr_nf(h, indptr, src,
+                                                      mean=True), reps=20)
+    _log(f"gnn: layer 0 of block 0 over CSR segments ({src.numel()} ids, "
+         f"against the padded table's {nbrs.numel()}) == the padded "
+         f"kernel's bytes; ms={csr_ms:.4f}")
     ms_k = _time_ms(lambda: gather_aggregate_nf(h, nbrs, mean=True), reps=20)
     plain_ms = _time_ms(lambda: gather_aggregate_ref(h, nbrs, mean=True),
                         reps=3)
@@ -1722,6 +1795,10 @@ SHARDED_TOL = 1e-4
 RESUME_LAYERS, RESUME_STEPS, RESUME_STALL_AT, RESUME_BUDGET_S = 2, 4, 3, 10
 DLRM_TRAIN_STEPS = 4
 SAGE_TRAIN_STEPS = 4
+# the kernels of a GraphSAGE train step; "gather_aggregate" (the padded
+# layout) is launched by no step: sage_apply aggregates over CSR segments
+SAGE_KERNELS = ("gather_aggregate", "gather_aggregate_csr",
+                "gather_aggregate_t", "adamw")
 
 
 def phase_backward_parity(dev) -> dict:
@@ -1730,9 +1807,9 @@ def phase_backward_parity(dev) -> dict:
     AdamW against its plain version (bit for bit); the worst error of
     each."""
     from repro_torch.testing.parity import (
-        ADAMW_CASES, AGG_T_CASES, AGG_T_TOL, BAG_BWD_CASES, BAG_BWD_TOL,
-        FLASH_BWD_CASES, FLASH_BWD_TOL, adamw_case, agg_t_case, bag_bwd_case,
-        flash_bwd_case,
+        ADAMW_CASES, AGG_CSR_CASES, AGG_T_CASES, AGG_T_TOL, BAG_BWD_CASES,
+        BAG_BWD_TOL, FLASH_BWD_CASES, FLASH_BWD_TOL, adamw_case,
+        agg_csr_t_case, agg_t_case, bag_bwd_case, flash_bwd_case,
     )
 
     worst = {}
@@ -1747,6 +1824,12 @@ def phase_backward_parity(dev) -> dict:
              f"{len(cases)} cases (tolerance {tol}), a second launch "
              f"byte-identical; max_abs_err by case: "
              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    csr = max(agg_csr_t_case(case, dev) for case in AGG_CSR_CASES)
+    worst["gather_aggregate_t"] = max(worst["gather_aggregate_t"], csr)
+    _log(f"parity: gather_aggregate_t over the transpose of the in-CSR "
+         f"(GatherAggregateCSR's backward) == autograd of the plain CSR "
+         f"aggregate on {len(AGG_CSR_CASES)} cases (tolerance {AGG_T_TOL}), "
+         f"a second launch byte-identical; max_abs_err={csr:.3g}")
     worst["adamw"] = max(adamw_case(case, dev) for case in ADAMW_CASES)
     _log(f"parity: adamw == its plain version bit for bit on "
          f"{len(ADAMW_CASES)} cases ({', '.join(c[0] for c in ADAMW_CASES)})")
@@ -1887,6 +1970,51 @@ def _sdpa_bwd_ms(qf, kf, vf, do, B) -> tuple:
     return ms, backend.name
 
 
+def _lm_launches(cfg, steps: int, policy: str) -> dict:
+    """The launches of ``steps`` LM train steps by kernel: the flash forward
+    once a layer, and once more under recomputation (``cfg.remat`` and a
+    policy other than none: the backward reruns each unit's forward, the
+    attention kernel included, as ``dots`` keeps only un-batched products'
+    outputs); the flash backward once a layer; AdamW once a parameter."""
+    from repro_torch.models.transformer import Transformer
+
+    forwards = 2 if cfg.remat and policy != "none" else 1
+    n_leaves = len(list(Transformer(cfg, device="meta").parameters()))
+    return {"flash_attention": forwards * steps * cfg.n_layers,
+            "flash_attention_bwd": steps * cfg.n_layers,
+            "adamw": steps * n_leaves}
+
+
+def _recorded_losses(losses: list):
+    """A context in which the trainer CLI's arch appends each step's loss to
+    ``losses`` as the float the step returned (its log prints 4 decimals:
+    runs are compared on these)."""
+    from unittest import mock
+
+    from repro_torch.launch import train as cli
+
+    get_arch = cli.get_arch
+
+    class Recorded:
+        def __init__(self, arch):
+            self._arch = arch
+
+        def __getattr__(self, name):
+            return getattr(self._arch, name)
+
+        def step_fn(self, *args, **kwargs):
+            step = self._arch.step_fn(*args, **kwargs)
+
+            def run(*a):
+                out = step(*a)
+                losses.append(float(out[0]))
+                return out
+            return run
+
+    return mock.patch.object(cli, "get_arch",
+                             lambda name: Recorded(get_arch(name)))
+
+
 def phase_train_lm(out: Path, dev) -> tuple:
     """qwen3-1.7b trained at full width through the trainer CLI: 8 steps at
     batch 4 × 1 024, a falling loss, one final checkpoint (then deleted);
@@ -1896,6 +2024,7 @@ def phase_train_lm(out: Path, dev) -> tuple:
     import shutil
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.models.common import remat_policy
     from repro_torch.models.transformer import Transformer
 
     cfg = get_arch("qwen3-1.7b").cfg
@@ -1905,8 +2034,10 @@ def phase_train_lm(out: Path, dev) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.monotonic()
-    rc, text = _train_cli(TRAIN_FLAGS + ["--ckpt-dir", str(ckpt_dir)],
-                          out / "train_lm.log")
+    exact = []
+    with _recorded_losses(exact):
+        rc, text = _train_cli(TRAIN_FLAGS + ["--ckpt-dir", str(ckpt_dir)],
+                              out / "train_lm.log")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = _read_counts()
@@ -1921,22 +2052,23 @@ def phase_train_lm(out: Path, dev) -> tuple:
     ck_bytes = sum(f.stat().st_size for f in (ckpt_dir / f"step_{steps - 1:08d}")
                    .iterdir())
     _log(f"train-lm: qwen3-1.7b {cfg.n_layers} layers d_model {cfg.d_model} "
-         f"vocab {cfg.vocab}, {steps} steps at batch 4 x seq 1024: "
-         f"wall_s={wall:.1f} losses={losses} launches={launches} final "
-         f"checkpoint {ck_bytes} bytes")
+         f"vocab {cfg.vocab}, {steps} steps at batch 4 x seq 1024, "
+         f"remat={cfg.remat} under REPRO_REMAT_POLICY "
+         f"{remat_policy()!r}: wall_s={wall:.1f} losses={losses} "
+         f"launches={launches} final checkpoint {ck_bytes} bytes")
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"train-lm: {len(losses)} finite losses logged "
                              f"of {steps}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train-lm: the loss did not fall: {losses}")
-    if launches != {"flash_attention": steps * cfg.n_layers,
-                    "flash_attention_bwd": steps * cfg.n_layers,
-                    "adamw": steps * n_leaves}:
+    if launches != _lm_launches(cfg, steps, remat_policy()):
         raise AssertionError(f"train-lm: every step must launch the flash "
-                             f"forward and backward once per layer and "
-                             f"AdamW once per parameter ({n_leaves}): "
+                             f"forward once per layer (twice under "
+                             f"recomputation), the backward once per layer "
+                             f"and AdamW once per parameter ({n_leaves}): "
                              f"{launches}")
     ref = {"losses": losses, "launches": launches, "steady": _steady(text),
+           "exact": exact,
            "manifest": json.loads((ckpt_dir / f"step_{steps - 1:08d}"
                                    / "manifest.json").read_text())}
     shutil.rmtree(ckpt_dir)
@@ -2214,10 +2346,6 @@ def phase_train_rank(flags: list) -> int:
         return dataclasses.replace(arch, cfg=dataclasses.replace(
             arch.cfg, n_layers=int(layers)))
 
-    def no_save(ckpt_dir, step, tree, **_):
-        (Path(ckpt_dir) / f"step_{step:08d}").mkdir(parents=True,
-                                                     exist_ok=True)
-
     _zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2225,10 +2353,7 @@ def phase_train_rank(flags: list) -> int:
         if layers:
             patches.enter_context(mock.patch.object(cli, "get_arch", cut))
         if os.environ.get("SMOKE_TRAIN_NO_SAVE") == "1":
-            patches.enter_context(mock.patch.object(
-                cli, "state_tree", lambda *a: None))
-            patches.enter_context(mock.patch.object(cli.ckpt, "save",
-                                                    no_save))
+            patches.enter_context(_no_final_save())
         rc = cli.main(flags)
     torch.cuda.synchronize()
     rank = int(os.environ.get("RANK", "0"))
@@ -2239,6 +2364,25 @@ def phase_train_rank(flags: list) -> int:
                     "launches": {k: counts[k] for k in TRAIN_KERNELS},
                     "peak": torch.cuda.max_memory_allocated()}))
     return rc
+
+
+def _no_final_save():
+    """A context in which the trainer CLI gathers and writes no checkpoint:
+    its final step's directory is made empty (for runs nothing reads)."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.launch import train as cli
+
+    def no_save(ckpt_dir, step, tree, **_):
+        (Path(ckpt_dir) / f"step_{step:08d}").mkdir(parents=True,
+                                                     exist_ok=True)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(cli, "state_tree",
+                                          lambda *a: None))
+    stack.enter_context(mock.patch.object(cli.ckpt, "save", no_save))
+    return stack
 
 
 def _manifest_leaves_equal(name: str, got: dict, want: dict) -> int:
@@ -2340,7 +2484,9 @@ def phase_train_lm_sharded(out: Path, lm: dict) -> dict:
         got[ws] = (_losses(text), _steady(text), ranks)
         _log(f"train-lm-sharded (b): {SHARDED_LAYERS} of 28 layers, world "
              f"size {ws} ({'gloo, CUDA tensors' if ws > 1 else 'NCCL'}), "
-             f"--model-parallel {ws}: losses {got[ws][0]}; median step_s "
+             f"--model-parallel {ws}, remat under REPRO_REMAT_POLICY "
+             f"{os.environ.get('REPRO_REMAT_POLICY', 'full')!r}: losses "
+             f"{got[ws][0]}; median step_s "
              f"{got[ws][1]['step_s']:.4f}; peak bytes by rank "
              f"{[r['peak'] for r in ranks]}; launches by rank "
              f"{[r['launches'] for r in ranks]}")
@@ -2362,6 +2508,452 @@ def phase_train_lm_sharded(out: Path, lm: dict) -> dict:
          f"{[f'{r:.2e}' for r in rel]}); each rank's peak "
          f"{[r['peak'] for r in r2]} below world size 1's {r1[0]['peak']}")
     return total
+
+
+# train-lm-remat: train-lm's run is the default policy's (full: qwen3-1.7b
+# sets remat=True); the other two run the same flags in this process
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def phase_train_lm_remat(out: Path, lm: dict) -> dict:
+    """train-lm-remat: qwen3-1.7b at full width and depth through the
+    trainer CLI, `TRAIN_FLAGS`, under each of ``REPRO_REMAT_POLICY``'s
+    policies (full: train-lm's run; dots and none here, with no final
+    checkpoint), counts zeroed just before and read just after each;
+    prints each run's median step, peak bytes, losses and the flash
+    launches a step.  The losses (the floats the steps returned) must be
+    equal across the policies, bit for bit: the recomputation reruns the
+    same kernels (cuBLAS, the flash forward, eager ops: deterministic on
+    the same inputs and shapes) on the same inputs, so the backward sees
+    the same bytes; full's peak must be below none's.  Returns the
+    launches of the runs here, by kernel."""
+    import shutil
+
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch("qwen3-1.7b").cfg
+    steps = int(TRAIN_FLAGS[TRAIN_FLAGS.index("--steps") + 1])
+    card = phase_card()
+    runs = {"full": {"losses": lm["exact"], "steady": lm["steady"],
+                     "launches": lm["launches"]}}
+    total = dict.fromkeys(TRAIN_KERNELS, 0)
+    for policy in REMAT_POLICIES[1:]:
+        d = out / f"train_remat_{policy}"
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        os.environ["REPRO_REMAT_POLICY"] = policy
+        _zero_counts()
+        try:
+            with _recorded_losses(losses), _no_final_save():
+                rc, text = _train_cli(TRAIN_FLAGS + ["--ckpt-dir", str(d)],
+                                      out / f"train_remat_{policy}.log")
+        finally:
+            del os.environ["REPRO_REMAT_POLICY"]
+        counts = _read_counts()
+        if rc != 0:
+            raise RuntimeError(f"train-lm-remat {policy}: trainer exited {rc}")
+        runs[policy] = {"losses": losses, "steady": _steady(text),
+                        "launches": {k: counts[k] for k in TRAIN_KERNELS}}
+        for k in total:
+            total[k] += counts[k]
+        shutil.rmtree(d)
+    for policy, r in runs.items():
+        per_step = {k: r["launches"][k] / steps for k in TRAIN_KERNELS[:2]}
+        _log(f"train-lm-remat {policy}: qwen3-1.7b {cfg.n_layers} layers, "
+             f"{steps} steps at batch 4 x 1024 ({card}): median step_s "
+             f"{r['steady']['step_s']:.4f}, tokens_per_s "
+             f"{r['steady']['tokens_per_s']:.1f}, max_memory_allocated "
+             f"{r['steady']['peak']}; losses {r['losses']}; flash forward "
+             f"and backward launches a step {per_step}")
+        want = _lm_launches(cfg, steps, policy)
+        if r["launches"] != want:
+            raise AssertionError(f"train-lm-remat {policy}: launches "
+                                 f"{r['launches']}, expected {want}")
+        if len(r["losses"]) != steps or \
+                not all(map(math.isfinite, r["losses"])):
+            raise AssertionError(f"train-lm-remat {policy}: losses "
+                                 f"{r['losses']}")
+    base = runs["none"]["losses"]
+    for policy in ("full", "dots"):
+        if runs[policy]["losses"] != base:
+            gaps = [abs(a - b) / abs(b)
+                    for a, b in zip(runs[policy]["losses"], base)]
+            raise AssertionError(f"train-lm-remat: {policy}'s losses differ "
+                                 f"from none's: relative {gaps}")
+    peaks = {k: r["steady"]["peak"] for k, r in runs.items()}
+    if not peaks["full"] < peaks["none"]:
+        raise AssertionError(f"train-lm-remat: full's peak {peaks['full']} "
+                             f"is not below none's {peaks['none']}")
+    _log(f"train-lm-remat: losses bit-equal under {REMAT_POLICIES}; peaks "
+         f"{peaks} (full / none {peaks['full'] / peaks['none']:.3f})")
+    return total
+
+
+GRAPHCAST_REMAT_SHAPES = ("molecule", "full_graph_sm")
+GRAPHCAST_REMAT_LAYERS = 4
+# one step's gradients on the card against the CPU copy's, leaf by leaf, as
+# a share of the CPU's largest: tests/test_torch_gnn_archs.py's bound
+# against the reference
+GRAPHCAST_GRAD_TOL = 0.05
+# the shapes held to the CPU within those bounds.  At full_graph_sm the
+# node states grow by the in-degree (up to 274) a layer with no
+# normalisation (ROADMAP Queue 3) and the card's bf16 atomics round each of
+# the hub's adds, in no fixed order, where the CPU's index_add_ sums in f32
+# and rounds once: on an H100 the loss of one such pass was 28 % from the
+# CPU's, and a first-layer gradient 0.45·max|g|, with recomputation — so
+# there the card is measured against the CPU with and without it, and
+# held to finite values only
+GRAPHCAST_CPU_HELD = ("molecule",)
+
+
+def phase_graphcast_remat(dev) -> dict:
+    """graphcast-remat: graphcast at full width and GRAPHCAST_REMAT_LAYERS
+    layers on molecule and full_graph_sm (the full-size ``inputs``), its
+    processor blocks recomputed (REPRO_REMAT_POLICY full, the default):
+    one loss-and-gradient pass on the card under full and one under none,
+    with each pass's peak, against a CPU copy's pass under full — at
+    molecule (`GRAPHCAST_CPU_HELD`) the recomputed pass's loss within
+    ``parity.GNN_OUT_TOL``'s graphcast bound, every gradient within
+    GRAPHCAST_GRAD_TOL·max|g|, and the outputs within
+    `parity.gnn_card_against_cpu`'s bounds; at full_graph_sm the gaps are
+    printed and the values held finite — then GNN_ARCH_STEPS train steps
+    with finite losses.  Returns the launches by kernel over the steps
+    (AdamW)."""
+    import copy
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.gnn.graphcast import graphcast_init
+    from repro_torch.testing.parity import GNN_OUT_TOL, gnn_card_against_cpu
+    from repro_torch.train.step import init_opt_state, trainable_params
+
+    arch = get_arch("graphcast")
+    card = phase_card()
+    rtol = GNN_OUT_TOL["graphcast"][1]
+    total = dict.fromkeys(SAGE_KERNELS, 0)
+    for shape in GRAPHCAST_REMAT_SHAPES:
+        cfg = dataclasses.replace(arch.config(shape),
+                                  n_layers=GRAPHCAST_REMAT_LAYERS)
+        gb = arch.inputs(shape, seed=SAGE_SEED, device=dev)
+        model = graphcast_init(cfg, torch.Generator(device=dev)
+                               .manual_seed(0), device=dev, train=True)
+        cpu_model = copy.deepcopy(model).cpu()
+        gb_cpu = dataclasses.replace(gb, **{
+            f.name: getattr(gb, f.name).cpu() for f in dataclasses.fields(gb)
+            if isinstance(getattr(gb, f.name), torch.Tensor)})
+        loss_fn = arch.loss_fn(shape)
+
+        def loss_and_grads(m, batch):
+            params = trainable_params(m)
+            loss = loss_fn(m, batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return float(loss.detach()), dict(zip(params, grads))
+
+        peaks, passes = {}, {}
+        for policy in ("none", "full"):
+            os.environ["REPRO_REMAT_POLICY"] = policy
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                passes[policy] = loss_and_grads(model, gb)
+                torch.cuda.synchronize()
+                peaks[policy] = torch.cuda.max_memory_allocated()
+            finally:
+                del os.environ["REPRO_REMAT_POLICY"]
+        t = time.monotonic()
+        cpu_loss, cpu_grads = loss_and_grads(cpu_model, gb_cpu)
+        cpu_s = time.monotonic() - t
+        rel = {k: abs(passes[k][0] - cpu_loss) / max(abs(cpu_loss), 1e-30)
+               for k in passes}
+        worst = dict.fromkeys(("full", "none", "full-none"), 0.0)
+        for n, want in cpu_grads.items():
+            scale = max(float(want.abs().max()), 1e-30)
+            full, none = passes["full"][1][n], passes["none"][1][n]
+            err = {"full": float((full.cpu() - want).abs().max()) / scale,
+                   "none": float((none.cpu() - want).abs().max()) / scale,
+                   "full-none": float((full - none).abs().max()) / scale}
+            worst = {k: max(v, err[k]) for k, v in worst.items()}
+        held = shape in GRAPHCAST_CPU_HELD
+        finite = all(math.isfinite(v) for v in [*rel.values(),
+                                                *worst.values()])
+        if not finite or held and not (rel["full"] <= rtol and
+                                       worst["full"] <= GRAPHCAST_GRAD_TOL):
+            raise AssertionError(
+                f"graphcast-remat {shape}: the recomputed pass's loss is "
+                f"{rel['full']} from the CPU's (bound {rtol}), its worst "
+                f"gradient {worst['full']}·max|g| (bound "
+                f"{GRAPHCAST_GRAD_TOL}); without recomputation {rel['none']}, "
+                f"{worst['none']}")
+        fwd = (gnn_card_against_cpu(arch, shape, model, gb) if held else
+               "outputs not held to the CPU (GRAPHCAST_CPU_HELD)")
+        del cpu_model, gb_cpu, cpu_grads, passes
+        state = init_opt_state(model)
+        step = arch.step_fn(shape)
+        _zero_counts()
+        losses = []
+        for _ in range(GNN_ARCH_STEPS):
+            out_loss, model, state = step(model, state, gb)
+            losses.append(float(out_loss))
+        counts = _read_counts()
+        n_leaves = len(list(model.parameters()))
+        if counts["adamw"] != GNN_ARCH_STEPS * n_leaves or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"graphcast-remat {shape}: losses {losses}, "
+                                 f"AdamW launches {counts['adamw']}")
+        for k in total:
+            total[k] += counts[k]
+        _log(f"graphcast-remat {shape} ({GRAPHCAST_REMAT_LAYERS} layers, "
+             f"{card}): processors recomputed; one pass's loss against the "
+             f"CPU's {cpu_loss!r}: recomputed rel {rel['full']:.3g}, without "
+             f"recomputation {rel['none']:.3g} (bound {rtol} "
+             f"{'held' if held else 'not held'}; the CPU pass {cpu_s:.1f} "
+             f"s); gradients, worst leaf as a share of the CPU's max|g|: "
+             f"recomputed {worst['full']:.3g}, without recomputation "
+             f"{worst['none']:.3g}, the two card passes apart "
+             f"{worst['full-none']:.3g} (bound {GRAPHCAST_GRAD_TOL} "
+             f"{'held' if held else 'not held'}); {fwd}; peak of a loss-"
+             f"and-gradient pass: full {peaks['full']}, none "
+             f"{peaks['none']}; {GNN_ARCH_STEPS} train steps' losses "
+             f"{losses}")
+        del model, state, gb
+        torch.cuda.empty_cache()
+    return total
+
+
+# train-gnn-ogb: graphsage-reddit trained on ogb_products' full batch
+OGB_STEPS = 8
+# the transpose at layer 1 is held to autograd of the plain CSR forward
+# over the rows within this many of the largest hub (the plain version's
+# cost is the hub's in-degree in sequential positions)
+OGB_T_ROWS = 2048
+
+
+def phase_train_gnn_ogb(dev) -> dict:
+    """train-gnn-ogb: graphsage-reddit on ogb_products at full size
+    (`GNNArch.inputs`: an undirected R-MAT stand-in with exactly 2 449 029
+    nodes and 61 859 140 directed edges, d_feat 100, 47 classes), its
+    aggregates over CSR segments: the host build, the in-degree's max, p99
+    and empty share, the CSR builds, OGB_STEPS train steps with counts
+    zeroed just before and read just after (two aggregates and one
+    transpose a step, no padded table), the median step and peak; every
+    loss finite, the batch's loss (read twice before and twice after)
+    falling by more than the spread of its readings; the logits equal to
+    the same forward with the plain CSR aggregate; the aggregate timed at
+    both layers' widths (F 100 and 128) and the transpose at layer 1's,
+    each beside its bound and ``torch.sparse.mm`` on the same CSR; the
+    transpose held to autograd of the plain CSR forward on f32 copies over
+    the rows around the largest hub (`AGG_T_TOL`), launched twice
+    (identical bytes).  Returns (launches by kernel, the rows)."""
+    import statistics
+    from unittest import mock
+
+    from repro_torch.configs import gnn_arch as gnn_arch_mod
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.gather_aggregate.kernel import (
+        gather_aggregate_csr_nf, gather_aggregate_t_nf,
+    )
+    from repro_torch.kernels.gather_aggregate.ops import csr_transpose, in_csr
+    from repro_torch.kernels.gather_aggregate.ref import (
+        gather_aggregate_csr_ref,
+    )
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.testing.parity import AGG_T_TOL, grads_close
+    from repro_torch.train.step import init_opt_state
+
+    arch = get_arch("graphsage-reddit")
+    shape = "ogb_products"
+    meta = arch.meta(shape)
+    card = phase_card()
+    rmat = gnn_arch_mod.rmat_undirected_graph
+    host_s = []
+
+    def timed_rmat(*a, **k):
+        t = time.monotonic()
+        try:
+            return rmat(*a, **k)
+        finally:
+            host_s.append(time.monotonic() - t)
+
+    t0 = time.monotonic()
+    with mock.patch.object(gnn_arch_mod, "rmat_undirected_graph",
+                           timed_rmat):
+        gb = arch.inputs(shape, seed=SAGE_SEED, device=dev)
+    torch.cuda.synchronize()
+    batch_s = time.monotonic() - t0
+    N = gb.x.shape[0]
+    n_real, e_real = int(gb.node_mask.sum()), int(gb.edge_mask.sum())
+    if (n_real, e_real) != (meta["n_nodes"], meta["n_edges"]):
+        raise AssertionError(f"ogb_products: {n_real} nodes and {e_real} "
+                             f"edges, not {meta['n_nodes']} and "
+                             f"{meta['n_edges']}")
+    indptr, src = in_csr(gb.edge_src, gb.edge_dst, gb.edge_mask, N)
+    csr_ms = _time_ms(lambda: in_csr(gb.edge_src, gb.edge_dst, gb.edge_mask,
+                                     N), reps=3)
+    t_ms = _time_ms(lambda: csr_transpose(indptr, src), reps=3)
+    deg = torch.diff(indptr).float()[:n_real]
+    hub = int(torch.argmax(deg))
+    deg_max, deg_p99 = int(deg[hub]), float(torch.quantile(deg, 0.99))
+    empty = float((deg == 0).float().mean())
+    _log(f"train-gnn-ogb: {n_real} nodes, {e_real} directed edges (padded "
+         f"{N} / {gb.edge_src.shape[0]}), d_feat {gb.x.shape[1]}, "
+         f"{meta['n_out']} classes; host R-MAT build {host_s[0]:.1f} s, "
+         f"the whole batch {batch_s:.1f} s; in-degree max {deg_max} (node "
+         f"{hub}), p99 {deg_p99:.1f}, empty share {empty:.4f}; in-CSR build "
+         f"{csr_ms:.3f} ms, its transpose {t_ms:.3f} ms ({card})")
+
+    model = arch.init(shape, torch.Generator(device=dev).manual_seed(0),
+                      device=dev, train=True)
+    state = init_opt_state(model)
+    loss_fn, step = arch.loss_fn(shape), arch.step_fn(shape)
+
+    def held_loss():
+        with torch.no_grad():
+            return float(loss_fn(model, gb))
+
+    before = (held_loss(), held_loss())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_ms = [], []
+    for _ in range(OGB_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, model, state = step(model, state, gb)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    after = (held_loss(), held_loss())
+    launches = {k: counts[k] for k in SAGE_KERNELS}
+    n_leaves = len(list(model.parameters()))
+    _log(f"train-gnn-ogb: graphsage-reddit {shape}: losses={losses}; held "
+         f"loss {before[0]!r} (again {before[1]!r}) → {after[0]!r} (again "
+         f"{after[1]!r}); step_ms={[round(m, 3) for m in step_ms]} (median "
+         f"after the first {statistics.median(step_ms[1:]):.3f}); "
+         f"max_memory_allocated={peak}; launches={launches}")
+    if launches != {"gather_aggregate": 0,
+                    "gather_aggregate_csr": 2 * OGB_STEPS,
+                    "gather_aggregate_t": OGB_STEPS,
+                    "adamw": OGB_STEPS * n_leaves}:
+        raise AssertionError(f"train-gnn-ogb: every step must launch the "
+                             f"aggregate over CSR segments twice, its "
+                             f"transpose once and AdamW once a parameter "
+                             f"({n_leaves}): {launches}")
+    if not all(math.isfinite(v) for v in losses + [*before, *after]):
+        raise AssertionError(f"train-gnn-ogb: a non-finite loss: {losses}")
+    spread = max(abs(before[0] - before[1]), abs(after[0] - after[1]))
+    if not min(before) - max(after) > spread:
+        raise AssertionError(f"train-gnn-ogb: the loss did not fall by more "
+                             f"than its spread {spread}: {before} → {after}")
+
+    with torch.inference_mode():
+        got = graphsage.sage_apply(model, gb).float()
+        t = time.monotonic()
+        with mock.patch.object(graphsage, "gather_aggregate_csr",
+                               gather_aggregate_csr_ref):
+            want = graphsage.sage_apply(model, gb).float()
+        plain_fwd_s = time.monotonic() - t
+    if not torch.equal(got, want):
+        raise AssertionError(f"train-gnn-ogb: logits differ from the plain "
+                             f"CSR aggregate's by "
+                             f"{float((got - want).abs().max())}")
+    _log(f"train-gnn-ogb: logits == the same forward with the plain CSR "
+         f"aggregate (exact; max |logit| {float(want.abs().max()):.4g}; the "
+         f"plain forward {plain_fwd_s:.1f} s)")
+    del got, want, state
+
+    # the kernels at the path's widths, beside their bounds and the library
+    gen = torch.Generator(device=dev).manual_seed(7)
+    nnz = src.numel()
+    crow, col = indptr.long(), src.long()
+    rows = {}
+    for name, Fd in (("gather_aggregate_csr", gb.x.shape[1]),
+                     ("gather_aggregate_csr", arch.config(shape).d_hidden),
+                     ("gather_aggregate_t", arch.config(shape).d_hidden)):
+        h = torch.randn((N, Fd), generator=gen, device=dev).to(torch.bfloat16)
+        if name == "gather_aggregate_t":
+            t_indptr, dst, t_deg = csr_transpose(indptr, src)
+
+            def fn():
+                return gather_aggregate_t_nf(h, t_indptr, dst, t_deg)
+            lib_crow, lib_col = t_indptr.long(), dst.long()
+            lib_vals = (1.0 / t_deg.clamp(min=1).float())[dst.long()]
+        else:
+            def fn():
+                return gather_aggregate_csr_nf(h, indptr, src, mean=True)
+            lib_crow, lib_col = crow, col
+            d_in = torch.diff(crow)
+            lib_vals = (1.0 / d_in.clamp(min=1).float()).repeat_interleave(
+                d_in)
+        ms = _time_ms(fn, reps=5)
+        esize = h.element_size()
+        # the contract's bound: each input read once (every node's row is
+        # some node's neighbour), the ids, each output row written once;
+        # a kernel that rereads a row an edge moves nnz rows instead
+        read_rows = int((torch.bincount(lib_col, minlength=N) > 0).sum())
+        nbytes = (N + 1 + nnz) * 4 + read_rows * Fd * esize + N * Fd * esize
+        if name == "gather_aggregate_t":
+            nbytes += N * 4                       # the degrees
+        edge_bytes = (N + 1 + nnz) * 4 + nnz * Fd * esize + N * Fd * esize
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, 2 * nnz * Fd / F32_FLOPS_S
+        try:
+            adj = torch.sparse_csr_tensor(lib_crow, lib_col,
+                                          lib_vals.to(torch.bfloat16),
+                                          (N, N), check_invariants=False)
+            torch.sparse.mm(adj, h)
+            lib_h, lib_dtype = h, "bf16"
+        except RuntimeError:   # a yardstick only: time it in f32 instead
+            adj = torch.sparse_csr_tensor(lib_crow, lib_col, lib_vals,
+                                          (N, N), check_invariants=False)
+            lib_h, lib_dtype = h.float(), "f32"
+        library_ms = _time_ms(lambda: torch.sparse.mm(adj, lib_h), reps=5)
+        row = {"ms": ms, "library_ms": library_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "edge_bound_ms": edge_bytes / HBM_BYTES_S * 1e3, "F": Fd}
+        rows.setdefault(name, []).append(row)
+        _log(f"kernels: {name} at ogb_products F={Fd} bf16 mean, nnz "
+             f"{nnz} ({card}): ms={ms:.4f} bound_ms={row['bound_ms']:.4f} "
+             f"({nbytes} bytes: each row read once; a row read an edge "
+             f"{row['edge_bound_ms']:.4f} ms) sparse_mm_ms="
+             f"{library_ms:.4f} ({lib_dtype})")
+        del adj, lib_h, h
+
+    # the transpose at layer 1 against autograd of the plain CSR forward
+    # over the rows around the largest hub (d_out zero elsewhere)
+    Fd = arch.config(shape).d_hidden
+    lo = max(hub - OGB_T_ROWS // 2, 0)
+    hi = min(lo + OGB_T_ROWS, N)
+    d_out = torch.zeros((N, Fd), dtype=torch.bfloat16, device=dev)
+    d_out[lo:hi] = torch.randn((hi - lo, Fd), generator=gen,
+                               device=dev).to(torch.bfloat16)
+    t_indptr, dst, t_deg = csr_transpose(indptr, src)
+    got = gather_aggregate_t_nf(d_out, t_indptr, dst, t_deg)
+    if not torch.equal(got, gather_aggregate_t_nf(d_out, t_indptr, dst,
+                                                  t_deg)):
+        raise AssertionError("train-gnn-ogb: a second transpose launch gave "
+                             "other bytes")
+    sub_indptr = indptr[lo:hi + 1] - indptr[lo]
+    sub_src = src[int(indptr[lo]):int(indptr[hi])]
+    h32 = torch.zeros((N, Fd), dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    t = time.monotonic()
+    gather_aggregate_csr_ref(h32, sub_indptr, sub_src, mean=True).backward(
+        d_out[lo:hi].float())
+    ref_s = time.monotonic() - t
+    rtol, atol = AGG_T_TOL[torch.bfloat16]
+    err = grads_close("gather_aggregate_t at ogb_products layer 1", got,
+                      h32.grad, rtol=rtol, atol=atol)
+    _log(f"train-gnn-ogb: the transpose at layer 1 == autograd of the plain "
+         f"CSR forward on f32 copies over rows [{lo}, {hi}) (the hub, "
+         f"in-degree {deg_max}; {int(sub_indptr[-1])} ids; the plain "
+         f"backward {ref_s:.1f} s), rtol, atol = {AGG_T_TOL[torch.bfloat16]}, "
+         f"max_abs_err={err:.3g}; a second launch byte-identical")
+    del model, gb, got, h32, d_out
+    torch.cuda.empty_cache()
+    return launches, rows
 
 
 def _no_dispatches(d: dict) -> dict:
@@ -2665,13 +3257,13 @@ def phase_train_gnn(dev, gnn: dict) -> tuple:
         step_ms.append((time.perf_counter() - t) * 1e3)
     counts = _read_counts()
     after = held_loss()
-    launches = {k: counts[k] for k in ("gather_aggregate",
-                                       "gather_aggregate_t", "adamw")}
+    launches = {k: counts[k] for k in SAGE_KERNELS}
     _log(f"train-gnn: graphsage-reddit {shape}: losses={losses} block-0 "
          f"loss {before:.6f} → {after:.6f}; step_ms="
          f"{[round(m, 3) for m in step_ms]} launches={launches}")
     n_leaves = len(list(model.parameters()))
-    if launches != {"gather_aggregate": 2 * SAGE_TRAIN_STEPS,
+    if launches != {"gather_aggregate": 0,
+                    "gather_aggregate_csr": 2 * SAGE_TRAIN_STEPS,
                     "gather_aggregate_t": SAGE_TRAIN_STEPS,
                     "adamw": SAGE_TRAIN_STEPS * n_leaves}:
         raise AssertionError(f"train-gnn: every step must launch the "
@@ -2800,7 +3392,9 @@ def phase_gnn_archs(dev, gnn: dict) -> dict:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.sampler import block_graph_batch
-    from repro_torch.kernels.gather_aggregate.ref import gather_aggregate_ref
+    from repro_torch.kernels.gather_aggregate.ref import (
+        gather_aggregate_csr_ref,
+    )
     from repro_torch.models.gnn import graphsage
     from repro_torch.models.gnn.graphcast import graphcast_init
     from repro_torch.testing.parity import AGG_TOL, gnn_card_against_cpu
@@ -2813,7 +3407,7 @@ def phase_gnn_archs(dev, gnn: dict) -> dict:
                                       device=dev)
     _log(f"gnn-archs: blocks 0-{GNN_ARCH_STEPS - 1} sampled and the graph's "
          f"positions drawn in {time.monotonic() - t0:.2f} s")
-    total = {"gather_aggregate": 0, "gather_aggregate_t": 0, "adamw": 0}
+    total = dict.fromkeys(SAGE_KERNELS, 0)
     for name, shape in GNN_ARCH_RUNS:
         arch = get_arch(name)
         if shape == "minibatch_lg":
@@ -2855,7 +3449,8 @@ def phase_gnn_archs(dev, gnn: dict) -> dict:
         after = (held_loss(), held_loss())
         launches = {k: counts[k] for k in total}
         sage = name == "graphsage-reddit"
-        want = {"gather_aggregate": 2 * GNN_ARCH_STEPS if sage else 0,
+        want = {"gather_aggregate": 0,
+                "gather_aggregate_csr": 2 * GNN_ARCH_STEPS if sage else 0,
                 "gather_aggregate_t": GNN_ARCH_STEPS if sage else 0,
                 "adamw": GNN_ARCH_STEPS * n_leaves}
         gb0 = gbs[0]
@@ -2893,8 +3488,8 @@ def phase_gnn_archs(dev, gnn: dict) -> dict:
             with torch.inference_mode():
                 got = [graphsage.sage_apply(m, gb0).float()
                        for m in (nodes, model)]
-                with mock.patch.object(graphsage, "gather_aggregate",
-                                       gather_aggregate_ref):
+                with mock.patch.object(graphsage, "gather_aggregate_csr",
+                                       gather_aggregate_csr_ref):
                     plain = [graphsage.sage_apply(m, gb0).float()
                              for m in (nodes, model)]
             if not torch.equal(got[0], plain[0]):
@@ -2943,7 +3538,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", choices=["train-resume", "distributed",
                                         "dist-rank", "serve-archs",
                                         "gnn-archs", "train-rank",
-                                        "train-sharded"],
+                                        "train-sharded", "train-remat",
+                                        "gnn-ogb"],
                     help="run this phase alone (the smoke runs train-resume "
                          "so, in a child process of its own, and each rank "
                          "of the distributed phase as dist-rank, the CLI's "
@@ -2951,7 +3547,10 @@ def main(argv=None) -> int:
                          "flash kernel's rows of phase 9; gnn-archs: phase "
                          "8's graph and forward, then phase 8b; "
                          "train-sharded: train-lm, then train-lm-sharded, "
-                         "whose torchrun ranks run as train-rank)")
+                         "whose torchrun ranks run as train-rank; "
+                         "train-remat: train-lm, train-lm-remat and "
+                         "graphcast-remat; gnn-ogb: the aggregate's parity "
+                         "cases, phase 8, train-gnn and train-gnn-ogb)")
     argv = sys.argv[1:] if argv is None else list(argv)
     cli_flags = argv[argv.index("--") + 1:] if "--" in argv else []
     argv = argv[:argv.index("--")] if "--" in argv else argv
@@ -2986,6 +3585,26 @@ def main(argv=None) -> int:
         OUT.mkdir(parents=True, exist_ok=True)
         phase_build()
         phase_distributed(OUT, args.mico_sigma)
+        return 0
+    if args.phase == "train-remat":
+        OUT.mkdir(parents=True, exist_ok=True)
+        dev = torch.device("cuda")
+        phase_build()
+        lm_ref = _timed(phase_train_lm, OUT, dev)[3]
+        _timed(phase_train_lm_remat, OUT, lm_ref)
+        _timed(phase_graphcast_remat, dev)
+        phase_card()
+        return 0
+    if args.phase == "gnn-ogb":
+        dev = torch.device("cuda")
+        phase_build()
+        _timed(phase_bag_agg_parity, dev)
+        _timed(phase_backward_parity, dev)
+        gnn = _timed(phase_gnn, dev)[2]
+        _timed(phase_train_gnn, dev, gnn)
+        del gnn
+        _timed(phase_train_gnn_ogb, dev)
+        phase_card()
         return 0
     if args.phase == "serve-archs":
         phase_build()
@@ -3029,6 +3648,8 @@ def main(argv=None) -> int:
     aggt_launches, aggt = _timed(phase_train_gnn, dev, gnn)
     arch_launches = _timed(phase_gnn_archs, dev, gnn)
     del gnn
+    ogb_launches, ogb_rows = _timed(phase_train_gnn_ogb, dev)
+    gc_launches = _timed(phase_graphcast_remat, dev)
     kernels = _timed(phase_kernels, dev, launches, worst, args.mico_sigma)
     flash = _timed(phase_flash_kernel, dev)
     session, session_launches, meter = _timed(
@@ -3038,6 +3659,7 @@ def main(argv=None) -> int:
     _timed(phase_session_sigterm, OUT)
     _timed(phase_mis_exact, dev)
     lm_launches, flash_bwd, adamw, lm_ref = _timed(phase_train_lm, OUT, dev)
+    remat = _timed(phase_train_lm_remat, OUT, lm_ref)
     sharded = _timed(phase_train_lm_sharded, OUT, lm_ref)
     _timed(phase_train_resume_child)
     bag_bwd_launches, bag_bwd = _timed(phase_train_dlrm, dev)
@@ -3046,7 +3668,8 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-        "launches": flash_launches + sharded["flash_attention"],
+        "launches": flash_launches + lm_launches["flash_attention"]
+        + remat["flash_attention"] + sharded["flash_attention"],
         "max_abs_err": max(worst_flash, flash["max_abs_err"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -3054,8 +3677,11 @@ def main(argv=None) -> int:
     for name, n, row, replaces in (
             ("embedding_bag", bag_launches, bag,
              "src/repro/kernels/embedding_bag/kernel.py:20"),
-            ("gather_aggregate",
-             agg_launches + arch_launches["gather_aggregate"], agg,
+            # both layouts: GraphSAGE's forwards (phase 8), its train steps
+            # (train-gnn, gnn-archs, train-gnn-ogb)
+            ("gather_aggregate", agg_launches + sum(
+                d[k] for d in (aggt_launches, arch_launches, ogb_launches)
+                for k in ("gather_aggregate", "gather_aggregate_csr")), agg,
              "src/repro/kernels/gather_aggregate/kernel.py:24")):
         kernels.append({
             "name": name, "route": "cuda",
@@ -3070,15 +3696,18 @@ def main(argv=None) -> int:
     # fuses); launches are the training runs'
     for name, n, row, replaces in (
             ("flash_attention_bwd", lm_launches["flash_attention_bwd"]
-             + sharded["flash_attention_bwd"],
+             + remat["flash_attention_bwd"] + sharded["flash_attention_bwd"],
              flash_bwd, "src/repro/kernels/flash_attention/kernel.py:27"),
             ("embedding_bag_bwd", bag_bwd_launches["embedding_bag_bwd"],
              bag_bwd, "src/repro/kernels/embedding_bag/kernel.py:20"),
             ("gather_aggregate_t", aggt_launches["gather_aggregate_t"]
-             + arch_launches["gather_aggregate_t"], aggt,
+             + arch_launches["gather_aggregate_t"]
+             + ogb_launches["gather_aggregate_t"], aggt,
              "src/repro/kernels/gather_aggregate/kernel.py:24"),
             ("adamw", lm_launches["adamw"] + arch_launches["adamw"]
-             + sharded["adamw"], adamw, "src/repro/train/optimizer.py:59")):
+             + remat["adamw"] + sharded["adamw"] + ogb_launches["adamw"]
+             + gc_launches["adamw"], adamw,
+             "src/repro/train/optimizer.py:59")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,

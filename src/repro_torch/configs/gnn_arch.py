@@ -8,18 +8,23 @@ shared by the GNN archs:
 
 Geometric models (SchNet, NequIP: ``needs_positions``) consume
 positions; every graph here is a synthetic stand-in built from a seed.
-The port runs full_graph_sm, minibatch_lg and molecule: the forward loss
-and the training step (loss + grad + AdamW with the arch's `AdamWConfig`,
-lr 1e-3, on a model built with ``train=True``), the reference's only step
-for a GNN cell; ogb_products raises `NotImplementedError` (ROADMAP.md: its
-edge states do not fit one card along the reference's path).
+Every arch runs full_graph_sm, minibatch_lg and molecule, and GraphSAGE
+also ogb_products (`GNNArch.ported_shapes`): the forward loss and the
+training step (loss + grad + AdamW with the arch's `AdamWConfig`, lr 1e-3,
+on a model built with ``train=True``), the reference's only step for a GNN
+cell.  schnet, nequip and graphcast at ogb_products raise
+`NotImplementedError` naming their largest edge tensor and its bytes
+(`OGB_EDGE_TENSORS`): their steps outgrow one 80 GB card and need a
+node-sharded run over several cards (ROADMAP.md Queue 1 item 7).
 
-  * full_graph_sm and molecule: `inputs` builds the shape's one batch on
-    the device — an undirected R-MAT graph with Cora's 2 708 vertices and
-    10 556 directed edges, or 128 connected molecules of 30 atoms and 64
-    bonds (a chain plus distinct random pairs, both directions) — with
-    features, positions and targets drawn from a seed, padded to `_pad`'s
-    sizes with the masks false on the padding;
+  * full_graph_sm, ogb_products and molecule: `inputs` builds the shape's
+    one batch on the device — an undirected R-MAT graph with Cora's 2 708
+    vertices and 10 556 directed edges, or with ogb-products' 2 449 029
+    and 61 859 140, or 128 connected molecules of 30 atoms and 64 bonds (a
+    chain plus distinct random pairs, both directions) — with features
+    (N(0, 1) f32), positions and targets (class ids uniform in n_out)
+    drawn from a seed, padded to `_pad`'s sizes with the masks false on
+    the padding;
   * minibatch_lg: the graph is an R-MAT stand-in with Reddit's vertex and
     directed edge counts (`graph`), its features and labels (`node_data`)
     and positions (`node_pos`) are drawn from a seed, and `sampler` cuts
@@ -61,7 +66,17 @@ GNN_SHAPES: Dict[str, ShapeCell] = {
         n_nodes=30 * 128, n_edges=64 * 2 * 128, d_feat=16, n_out=1,
         graph_level=True, n_graphs=128)),
 }
+# the shapes every GNN arch runs (`GNNArch.ported_shapes` adds more)
 PORTED_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
+# ogb_products: the largest edge tensor of each arch's train step, which
+# with the step's other edge activations and gradients outgrows one 80 GB
+# card — (what it is, its width, bytes an element); graphcast's processor
+# concatenates three of its states, (E, 3·512)
+OGB_EDGE_TENSORS = {
+    "graphcast": ("the processor's edge state (E, 512) bf16", 512, 2),
+    "schnet": ("the RBF expansion (E, 300) bf16", 300, 2),
+    "nequip": ("the rank-2 messages (E, 32·9) f32", 32 * 9, 4),
+}
 NODE_AXES = ("pod", "data")
 
 _REDUCED_META = dict(n_nodes=64, n_edges=256, d_feat=8, n_out=4,
@@ -84,6 +99,7 @@ class GNNArch:
     opt: AdamWConfig = dataclasses.field(
         default_factory=lambda: AdamWConfig(lr=1e-3))
     family: str = "gnn"
+    ported_shapes: Tuple[str, ...] = PORTED_SHAPES
 
     @property
     def name(self) -> str:
@@ -100,11 +116,25 @@ class GNNArch:
             meta.update(graph_level=True, n_graphs=4, n_out=1)
         return meta
 
-    @staticmethod
-    def _ported(shape: str) -> None:
-        if shape not in PORTED_SHAPES:
+    def _ported(self, shape: str) -> None:
+        if shape in self.ported_shapes:
+            return
+        if shape == "ogb_products" and self.arch_name in OGB_EDGE_TENSORS:
+            what, width, size = OGB_EDGE_TENSORS[self.arch_name]
+            E = GNN_SHAPES[shape].meta["n_edges"]
+            extra = (f"; its (E, {3 * width}) concatenation "
+                     f"{E * 3 * width * size / 1e9:.1f} GB"
+                     if self.arch_name == "graphcast" else "")
             raise NotImplementedError(
-                f"{shape}: only {PORTED_SHAPES} is ported yet (ROADMAP.md)")
+                f"{self.arch_name} at {shape}: {what} is "
+                f"{E * width * size / 1e9:.1f} GB at E = {E}{extra}; a "
+                f"train step holds it beside the other edge activations "
+                f"and their gradients, past one 80 GB card: it needs a "
+                f"node-sharded run over several cards (ROADMAP.md Queue 1 "
+                f"item 7)")
+        raise NotImplementedError(
+            f"{self.arch_name}: only {self.ported_shapes} is ported yet "
+            f"(ROADMAP.md)")
 
     def _build(self, shape: str, reduced: bool = False):
         self._ported(shape)
@@ -208,8 +238,9 @@ class GNNArch:
 
     def inputs(self, shape: str, *, seed: int = 0, device="cuda"
                ) -> GraphBatch:
-        """The full-size batch of full_graph_sm or molecule on ``device``
-        (module docstring); minibatch_lg's come from `sampler`."""
+        """The full-size batch of full_graph_sm, ogb_products or molecule
+        on ``device`` (module docstring); minibatch_lg's come from
+        `sampler`."""
         self._ported(shape)
         if shape == "minibatch_lg":
             raise ValueError("minibatch_lg batches are sampled blocks: "

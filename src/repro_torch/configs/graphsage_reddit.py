@@ -2,7 +2,7 @@
 sample sizes 25-10 (arXiv:1706.02216; paper)."""
 from ..device import resolve_device
 from ..models.gnn.graphsage import SAGEConfig, sage_init, sage_loss
-from .gnn_arch import GNNArch
+from .gnn_arch import PORTED_SHAPES, GNNArch
 
 
 def _build(meta):
@@ -19,4 +19,6 @@ def _build(meta):
         sage_loss
 
 
-ARCH = GNNArch("graphsage-reddit", _build)
+# the CSR aggregate holds ogb_products' 61.9 M edges once each
+ARCH = GNNArch("graphsage-reddit", _build,
+               ported_shapes=PORTED_SHAPES + ("ogb_products",))

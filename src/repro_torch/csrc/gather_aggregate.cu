@@ -1,18 +1,28 @@
-// Padded-neighbour gather-aggregate (the GNN's SpMM): one warp per node.
+// Gather-aggregate (the GNN's SpMM) over index segments: one warp per node.
 //
 // Replaces the TPU kernel `_agg_kernel` / `gather_aggregate_pallas`
 // (src/repro/kernels/gather_aggregate/kernel.py).  Computes the same
-// function: features (N, F), nbrs (N, Dmax) int32 with pad −1 → out (N, F)
-// in the features' dtype,
-//   out[i] = Σ_j features[nbrs[i, j]]   over nbrs[i, j] ≥ 0,
+// function: features (N, F) → out (N, F) in the features' dtype,
+//   out[i] = Σ_j features[ids[j]]   over j in node i's segment, ids[j] ≥ 0,
 // accumulated in f32 in j order, divided by max(#valid, 1) for the mean.
+// Node i's segment is [start_i, end_i) of one int32 index array, in one of
+// two layouts, both through the one kernel:
+//   * padded (the reference kernel's interface): nbrs (N, Dmax), pad −1,
+//     the segment [i·Dmax, (i+1)·Dmax) with the pads skipped;
+//   * CSR: indptr (N + 1,) and src (nnz,), the segment
+//     [indptr[i], indptr[i+1]) — no padding, so a hub of in-degree 10⁵
+//     costs its own ids only (the padded table of an R-MAT graph at
+//     ogb_products' 2.4 M nodes would be Dmax ids a node, hundreds of GB).
+// The sum visits the same ids in the same order in both layouts, so the
+// CSR form gives the padded form's bytes on the same graph.
 // An id ≥ N lies outside the contract; the kernel skips it and never reads
-// past the features.
+// past the features.  Offsets of a row (row × F) are 64-bit: at
+// ogb_products nnz × F is 7.9·10⁹ > 2³¹.
 //
 // What bounds it on an H100: memory.  Each valid neighbour reads one
 // feature row (1 204 B for GraphSAGE-reddit's bf16 F = 602), each node
-// reads its table row and writes one output row; ~1 FLOP per byte.  The
-// TPU kernel holds the whole feature matrix in VMEM and walks a node block
+// reads its ids and writes one output row; ~1 FLOP per byte.  The TPU
+// kernel holds the whole feature matrix in VMEM and walks a node block
 // in order; here every warp works alone and reads rows from device memory
 // (or L2, where neighbours repeat):
 //   * a node's ids are read once, 32 at a time, one per lane; a ballot
@@ -28,8 +38,10 @@
 //     (an odd F takes one column per lane);
 //   * 8 columns per lane are live at once (4 pairs), 256 columns a pass:
 //     F = 602 takes three passes over a node's neighbours.
-// 16-byte loads with a peeled tail, and keeping more of a row in flight,
-// are later work.
+// One warp a node leaves a hub's row to one warp: on a power-law graph the
+// largest rows set the kernel's tail (its segment's rows are read one
+// after another).  Splitting hub rows over warps, 16-byte loads with a
+// peeled tail, and keeping more of a row in flight, are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,18 +87,22 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v, int n) {
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-agg_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
-           T* __restrict__ out, int N, int F, int Dmax, int mean) {
+agg_kernel(const T* __restrict__ feat, const int* __restrict__ ids,
+           const int* __restrict__ indptr, T* __restrict__ out, int N, int F,
+           int Dmax, int mean) {
   const int node = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (node >= N) return;
   const int lane = threadIdx.x & 31;
-  const int* row_ids = nbrs + (size_t)node * Dmax;
+  // the node's segment: CSR when indptr is given, else a padded row
+  const size_t start = indptr ? (size_t)indptr[node] : (size_t)node * Dmax;
+  const int len = indptr ? indptr[node + 1] - indptr[node] : Dmax;
+  const int* row_ids = ids + start;
   T* dst = out + (size_t)node * F;
 
   int count = 0;
-  for (int base = 0; base < Dmax; base += 32) {
+  for (int base = 0; base < len; base += 32) {
     const int j = base + lane;
-    const int id = j < Dmax ? row_ids[j] : -1;
+    const int id = j < len ? row_ids[j] : -1;
     count += __popc(__ballot_sync(0xffffffffu, id >= 0 && id < N));
   }
   constexpr int kStep = 32 * VEC;            // columns of one group
@@ -104,9 +120,9 @@ agg_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
     for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[u][e] = 0.f;
-    for (int base = 0; base < Dmax; base += 32) {
+    for (int base = 0; base < len; base += 32) {
       const int j = base + lane;
-      const int id = j < Dmax ? row_ids[j] : -1;
+      const int id = j < len ? row_ids[j] : -1;
       unsigned valid = __ballot_sync(0xffffffffu, id >= 0 && id < N);
       while (valid) {
         const int src_lane = __ffs(valid) - 1;
@@ -140,35 +156,53 @@ agg_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
 }
 
 template <typename T>
-cudaError_t launch_typed(const void* feat, const void* nbrs, void* out, int N,
-                         int F, int Dmax, int mean, cudaStream_t stream) {
+cudaError_t launch_typed(const void* feat, const void* ids, const void* indptr,
+                         void* out, int N, int F, int Dmax, int mean,
+                         cudaStream_t stream) {
   const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const T* f = static_cast<const T*>(feat);
-  const int* nb = static_cast<const int*>(nbrs);
+  const int* id = static_cast<const int*>(ids);
+  const int* ip = static_cast<const int*>(indptr);
   T* o = static_cast<T*>(out);
   if (F % 2 == 0) {
     agg_kernel<T, 2><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-        f, nb, o, N, F, Dmax, mean);
+        f, id, ip, o, N, F, Dmax, mean);
   } else {
     agg_kernel<T, 1><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-        f, nb, o, N, F, Dmax, mean);
+        f, id, ip, o, N, F, Dmax, mean);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t (0 on
-// success).  Pointers must be aligned to two elements when F is even (the
-// wrapper checks).
-extern "C" int gather_aggregate_launch(const void* feat, const void* nbrs,
-                                       void* out, int N, int F, int Dmax,
-                                       int dtype, int mean, void* stream) {
+int launch(const void* feat, const void* ids, const void* indptr, void* out,
+           int N, int F, int Dmax, int dtype, int mean, void* stream) {
   if (N <= 0 || F <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0
-          ? launch_typed<float>(feat, nbrs, out, N, F, Dmax, mean, s)
-          : launch_typed<__nv_bfloat16>(feat, nbrs, out, N, F, Dmax, mean, s);
+          ? launch_typed<float>(feat, ids, indptr, out, N, F, Dmax, mean, s)
+          : launch_typed<__nv_bfloat16>(feat, ids, indptr, out, N, F, Dmax,
+                                        mean, s);
   return (int)err;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Each returns the launch's cudaError_t
+// (0 on success).  Pointers must be aligned to two elements when F is even
+// (the wrappers check).
+// The padded layout: nbrs (N, Dmax) int32, pad −1.
+extern "C" int gather_aggregate_launch(const void* feat, const void* nbrs,
+                                       void* out, int N, int F, int Dmax,
+                                       int dtype, int mean, void* stream) {
+  return launch(feat, nbrs, nullptr, out, N, F, Dmax, dtype, mean, stream);
+}
+
+// The CSR layout: indptr (N + 1,) and src (nnz,) int32.
+extern "C" int gather_aggregate_csr_launch(const void* feat,
+                                           const void* indptr,
+                                           const void* src, void* out, int N,
+                                           int F, int dtype, int mean,
+                                           void* stream) {
+  return launch(feat, src, indptr, out, N, F, 0, dtype, mean, stream);
 }

@@ -2,7 +2,10 @@
 
 Replaces the TPU kernel ``_agg_kernel`` / ``gather_aggregate_pallas`` of
 ``src/repro/kernels/gather_aggregate/kernel.py``: one warp per node sums
-its valid neighbours' feature rows in f32, in neighbour order.
+its valid neighbours' feature rows in f32, in neighbour order, over a
+padded table (`gather_aggregate_nf`) or CSR segments
+(`gather_aggregate_csr_nf`) — the one kernel, two entry points, a launch
+count each.
 `gather_aggregate_t_nf` binds its transpose (``csrc/gather_aggregate_t.cu``):
 the features' gradient as a gather over the out-neighbour table,
 deterministic, with 16-byte lanes where the rows allow (`aggt_mode`).  The
@@ -29,7 +32,23 @@ def _lib():
         lib.gather_aggregate_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I,
                                                 _I, _P]
         lib.gather_aggregate_launch.restype = _I
+        lib.gather_aggregate_csr_launch.argtypes = [_P, _P, _P, _P, _I, _I,
+                                                    _I, _I, _P]
+        lib.gather_aggregate_csr_launch.restype = _I
     return lib
+
+
+def _check_features(features: torch.Tensor) -> None:
+    """The kernel's features: (N, F) float32 / bfloat16, contiguous on a
+    CUDA device, aligned to a column pair when F is even."""
+    N, F = features.shape
+    align = features.element_size() * (2 if F % 2 == 0 else 1)
+    if (features.device.type != "cuda" or features.dtype not in DTYPES
+            or not features.is_contiguous() or features.data_ptr() % align):
+        raise ValueError(
+            f"features: need a contiguous CUDA tensor of dtype "
+            f"{list(DTYPES)}, {align}-byte aligned; got {features.dtype} "
+            f"{tuple(features.shape)} on {features.device}")
 
 
 def gather_aggregate_nf(features: torch.Tensor, nbrs: torch.Tensor, *,
@@ -44,17 +63,12 @@ def gather_aggregate_nf(features: torch.Tensor, nbrs: torch.Tensor, *,
     Dmax = nbrs.shape[1]
     if max(N, F, Dmax) > INT32_MAX:
         raise ValueError(f"N, F and Dmax must fit int32: {N}, {F}, {Dmax}")
-    align = features.element_size() * (2 if F % 2 == 0 else 1)
-    for name, t, dtypes, a in (("features", features, DTYPES, align),
-                               ("nbrs", nbrs, (torch.int32,), 4)):
-        if (t.device.type != "cuda" or t.dtype not in dtypes
-                or not t.is_contiguous() or t.data_ptr() % a):
-            raise ValueError(
-                f"{name}: need a contiguous CUDA tensor of dtype "
-                f"{list(dtypes)}, {a}-byte aligned; got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    if nbrs.device != features.device:
-        raise ValueError(f"nbrs on {nbrs.device}, features on {features.device}")
+    _check_features(features)
+    if (nbrs.device != features.device or nbrs.dtype != torch.int32
+            or not nbrs.is_contiguous()):
+        raise ValueError(f"nbrs: need a contiguous int32 tensor on "
+                         f"{features.device}; got {nbrs.dtype} on "
+                         f"{nbrs.device}")
     out = torch.empty_like(features)
     if out.numel() == 0:
         return out
@@ -72,6 +86,49 @@ def gather_aggregate_nf(features: torch.Tensor, nbrs: torch.Tensor, *,
 
 
 gather_aggregate_nf.launches = 0
+
+
+def gather_aggregate_csr_nf(features: torch.Tensor, indptr: torch.Tensor,
+                            src: torch.Tensor, *,
+                            mean: bool = False) -> torch.Tensor:
+    """features (N, F) float32 or bfloat16; node i's neighbours
+    ``src[indptr[i]:indptr[i + 1]]`` (indptr (N + 1,), src (nnz,), int32,
+    ids in [0, N)) → (N, F) in the features' dtype, the sums (means)
+    `gather_aggregate_nf` gives on the padded table of the same rows.
+    Contiguous tensors on one CUDA device."""
+    if features.dim() != 2:
+        raise ValueError(f"need features (N, F), got {tuple(features.shape)}")
+    N, F = features.shape
+    if max(N + 1, F, src.numel()) > INT32_MAX:
+        raise ValueError(f"N + 1, F and nnz must fit int32: {N + 1}, {F}, "
+                         f"{src.numel()}")
+    _check_features(features)
+    for name, t, shape in (("indptr", indptr, (N + 1,)),
+                           ("src", src, (src.numel(),))):
+        if (t.device != features.device or t.dtype != torch.int32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(
+                f"{name}: need a contiguous int32 tensor of shape {shape} on "
+                f"{features.device}; got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    out = torch.empty_like(features)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    dev = features.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gather_aggregate_csr_launch(
+            features.data_ptr(), indptr.data_ptr(), src.data_ptr(),
+            out.data_ptr(), N, F, DTYPES[features.dtype], int(mean), stream)
+    if err != 0:
+        raise RuntimeError(f"gather_aggregate_csr launch failed: CUDA error "
+                           f"{err}")
+    gather_aggregate_csr_nf.launches += 1
+    return out
+
+
+gather_aggregate_csr_nf.launches = 0
 
 
 def _t_lib():

@@ -15,18 +15,25 @@ keep the reference's arithmetic exactly:
   * RoPE rotates split halves (``[x1·cos − x2·sin, x2·cos + x1·sin]``), not
     interleaved pairs;
   * the embedding table is cast to the compute dtype before the lookup (the
-    transformer multiplies the result by ``sqrt(d_model)``).
+    transformer multiplies the result by ``sqrt(d_model)``);
+  * `remat` runs one unit of a model (a transformer layer, a GraphCast
+    processor block) under recomputation, the reference's
+    ``jax.checkpoint`` with the policy named by ``REPRO_REMAT_POLICY``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+import os
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from .sharding import constrain
+from .sharding import captured_rules, constrain
 
 # the residual stream's logical axes: under a mesh its sequence is split
 # over the model axis (Megatron-SP)
@@ -35,7 +42,7 @@ RESIDUAL = ("batch", "residual", "embed")
 __all__ = ["Dense", "RMSNorm", "for_serving", "round_for_serving",
            "RESIDUAL", "dense_apply", "row_parallel", "rmsnorm_apply",
            "embed_apply", "rotary_embedding", "apply_rope", "softcap", "silu",
-           "count_params", "normal_"]
+           "count_params", "normal_", "remat", "remat_policy"]
 
 
 def normal_(t: torch.Tensor, scale: float, generator: torch.Generator
@@ -200,3 +207,58 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def count_params(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+# the un-batched matrix products whose outputs the ``dots`` policy keeps:
+# F.linear's (and any 2-D matmul's) forms after dispatch.  Batched products
+# (``aten.bmm``: attention's plain path, the MoE's expert products) and the
+# flash kernel are recomputed, as ``dots_with_no_batch_dims_saveable``
+# saves only dot_generals without batch dimensions.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy() -> str:
+    """The reference's ``REPRO_REMAT_POLICY``, read at each call: ``none``
+    (keep every activation), ``dots`` (keep the un-batched products'
+    outputs, recompute the rest) or, for any other value and by default,
+    ``full`` (keep the unit's inputs only)."""
+    name = os.environ.get("REPRO_REMAT_POLICY", "full")
+    return name if name in ("none", "dots") else "full"
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` as one recomputation unit: under grad, the activations
+    ``fn`` saves for its backward are dropped after the forward and
+    recomputed from ``args`` when the backward reaches them
+    (``torch.utils.checkpoint``, non-reentrant), as `remat_policy` says.
+    The recomputation runs under the sharding rules and mesh of the first
+    forward (`sharding.captured_rules`), so a sharded unit reruns its
+    collectives, on every rank in the backward's order; on deterministic
+    kernels it repeats the forward's bytes, and the gradients equal those
+    without it, bit for bit.  With grad off (serving, ``no_grad``
+    evaluation) or the policy ``none`` it is ``fn(*args)``."""
+    policy = remat_policy()
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+
+    def contexts():
+        forward, recompute = (
+            create_selective_checkpoint_contexts(_save_dots)
+            if policy == "dots" else
+            (contextlib.nullcontext(), contextlib.nullcontext()))
+        return forward, _entered(recompute, captured_rules())
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for ctx in contexts:
+            stack.enter_context(ctx)
+        yield

@@ -9,10 +9,15 @@ reference: a constant, the source's and destination's in-degree / 16 and
 the edge mask, with the degrees accumulated in bf16 (`scatter_sum` on the
 card adds them with atomics; bf16 holds every integer up to 256 only).
 
-The reference wraps each processor block in ``jax.checkpoint`` to bound
-its memory at ``ogb_products``; that changes no result, and at the shapes
-the port runs (``full_graph_sm``, ``minibatch_lg``, ``molecule``) every
-block's activations are kept for the backward.
+Each processor block is one recomputation unit, as the reference wraps
+it in ``jax.checkpoint``: under grad (`common.remat`, the policy from
+``REPRO_REMAT_POLICY``, ``full`` by default) the backward recomputes a
+block's edge activations — ``(E, 3·H)`` concatenations and ``(E, H)``
+states — from its inputs instead of holding every layer's.  On the CPU the
+recomputation repeats the first forward's bytes, so gradients equal those
+without it; on the card the aggregate's bf16 ``index_add_`` adds with
+atomics in no fixed order, so the recomputed states may differ from the
+first forward's in low bits.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..common import for_serving
+from ..common import for_serving, remat
 from .common import (
     MLP, GraphBatch, gather, mlp_apply, reset_dense_layers, scatter_sum,
     spread_padding,
@@ -87,11 +92,15 @@ def graphcast_apply(model: GraphCast, gb: GraphBatch) -> torch.Tensor:
     ef = torch.stack([torch.ones_like(mask), gather(deg, src) / 16.0,
                       gather(deg, dst) / 16.0, mask], dim=-1)
     e = mlp_apply(model.enc_edge, ef)
-    for lp in model.processors():
+
+    def processor(lp, h, e):
         # edge update: e' = MLP(e ⊕ h_src ⊕ h_dst) + e
         e = e + mlp_apply(lp.edge, torch.cat(
             [e, gather(h, src), gather(h, dst)], dim=-1))
         # node update: h' = MLP(h ⊕ Σ_in e') + h
         agg = scatter_sum(e, dst, gb.edge_mask, N)
-        h = h + mlp_apply(lp.node, torch.cat([h, agg], dim=-1))
+        return h + mlp_apply(lp.node, torch.cat([h, agg], dim=-1)), e
+
+    for lp in model.processors():
+        h, e = remat(processor, lp, h, e)
     return mlp_apply(model.dec, h)

@@ -4,20 +4,23 @@
 h_v^{l+1} = relu(W_self · h_v + W_neigh · mean_{u∈N(v)} h_u), L2-normalised.
 
 The reference computes each layer's neighbour mean as ``gather`` +
-``scatter_mean`` over the edge list.  Here `sage_apply` builds the padded
-in-neighbour table once per batch (`in_neighbor_table`: row v holds the
-sources of the edges into v in edge order) and each layer is one
-`gather_aggregate(h, nbrs, mean=True)`: the kernel on the card, its plain
-version on the CPU, so both devices run the same algorithm.  The sum runs
-in f32 and rounds once to bf16, where the reference's bf16 scatter rounds
-after every add; the two agree within bf16 tolerance (f32 features agree
-to f32 rounding, ``tests/test_torch_gnn.py``).  Under autograd the
-aggregate's backward is the transpose kernel; only layer 1's input takes a
-gradient there (the features ``x`` take none).  With ``graph_level`` (the
-``molecule`` shape) the last layer's node states are mean-pooled per graph
-(`segment_pool`) before the ``head``, and the loss is the graph
-regression's.  `sage_init` builds f32 masters for training
-(``train=True``) or frozen bf16 serving weights.
+``scatter_mean`` over the edge list.  Here `sage_apply` builds the
+in-neighbour CSR once per batch (`in_csr`: row v lists the sources of the
+edges into v in edge order, one stable sort by destination) and each layer
+is one `gather_aggregate_csr(h, indptr, src, mean=True)`: the kernel on
+the card, its plain version on the CPU, so both devices run the same
+algorithm, on every shape.  The CSR holds each edge once, whatever the
+degrees: at ogb_products' R-MAT stand-in (2.4 M nodes, 62 M edges, hub
+in-degrees of tens of thousands) a padded (N, Dmax) table would not fit a
+card.  The sum runs in f32 and rounds once to bf16, where the reference's
+bf16 scatter rounds after every add; the two agree within bf16 tolerance
+(f32 features agree to f32 rounding, ``tests/test_torch_gnn.py``).  Under
+autograd the aggregate's backward is the transpose kernel over the CSR's
+transpose; only layer 1's input takes a gradient there (the features
+``x`` take none).  With ``graph_level`` (the ``molecule`` shape) the last
+layer's node states are mean-pooled per graph (`segment_pool`) before the
+``head``, and the loss is the graph regression's.  `sage_init` builds f32
+masters for training (``train=True``) or frozen bf16 serving weights.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ...kernels.gather_aggregate.ops import gather_aggregate, in_neighbor_table
+from ...kernels.gather_aggregate.ops import gather_aggregate_csr, in_csr
 from ..common import Dense, for_serving
 from .common import (
     GraphBatch, graph_regression_loss, node_class_loss, segment_pool,
@@ -84,10 +87,9 @@ def sage_init(cfg: SAGEConfig, generator: torch.Generator, *,
 def sage_apply(model: SAGE, gb: GraphBatch) -> torch.Tensor:
     cfg = model.cfg
     h = gb.x.to(torch.bfloat16)
-    nbrs = in_neighbor_table(gb.edge_src, gb.edge_dst, gb.edge_mask,
-                             h.shape[0])
+    indptr, src = in_csr(gb.edge_src, gb.edge_dst, gb.edge_mask, h.shape[0])
     for l in range(cfg.n_layers):
-        agg = gather_aggregate(h, nbrs, mean=True)
+        agg = gather_aggregate_csr(h, indptr, src, mean=True)
         h = torch.relu(model.self_[l](h) + model.neigh[l](agg))
         h32 = h.float()
         norm = torch.linalg.vector_norm(h32, dim=-1, keepdim=True)

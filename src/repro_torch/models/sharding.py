@@ -128,17 +128,29 @@ _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def use_rules(mesh, rules: Optional[AxisRules] = None):
-    """Install sharding rules for ``mesh`` in this thread (mesh axes not in
-    the rule target are dropped, so one table serves 2-D and 3-D
-    meshes)."""
+def _installed(rules: Optional[AxisRules], mesh):
     prev = (_CTX.rules, _CTX.mesh)
-    _CTX.rules = dict(DEFAULT_RULES, **(rules or {}))
-    _CTX.mesh = mesh
+    _CTX.rules, _CTX.mesh = rules, mesh
     try:
         yield
     finally:
         _CTX.rules, _CTX.mesh = prev
+
+
+def use_rules(mesh, rules: Optional[AxisRules] = None):
+    """Install sharding rules for ``mesh`` in this thread (mesh axes not in
+    the rule target are dropped, so one table serves 2-D and 3-D
+    meshes)."""
+    return _installed(dict(DEFAULT_RULES, **(rules or {})), mesh)
+
+
+def captured_rules():
+    """A context that installs, in the thread entering it, the rules and
+    mesh in force in this thread now (and gives that thread its own back on
+    exit).  Recomputation (``common.remat``) reruns a forward inside the
+    backward — on the card in autograd's device thread, where `use_rules`
+    was never entered — and needs the forward's layouts and collectives."""
+    return _installed(_CTX.rules, _CTX.mesh)
 
 
 def current_mesh():

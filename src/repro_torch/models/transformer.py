@@ -9,11 +9,16 @@ returns the layers' aux losses summed in layer order, as the reference's
 scan carries them.
 
 `TransformerConfig` has the reference's fields minus ``use_flash``: which
-attention runs follows the device (see ``attention.py``).  ``remat`` and
-``scan_layers`` are kept so configurations read the same, and ignored:
-the port always loops, and autograd keeps every layer's activations (the
-training cut of qwen3-1.7b, batch 4 × 1 024 tokens, fits one 80 GB card
-without recomputation).
+attention runs follows the device (see ``attention.py``).  ``scan_layers``
+is kept so configurations read the same, and ignored: the port always
+loops.  ``remat`` is the reference's per-layer recomputation: under grad,
+each of its checkpoint units — one layer, or one (local, global) pair of
+an alternating stack, the reference's scan step — runs through
+``common.remat`` (``torch.utils.checkpoint``, the policy from
+``REPRO_REMAT_POLICY``: ``full`` by default, ``dots``, ``none``), so the
+backward recomputes the unit's activations instead of holding them.  The
+layers' aux losses are summed outside the units, once.  A forward that
+fills a decode cache, and any forward without grad, runs as is.
 
 A training model (`transformer_init` with ``train``) keeps the
 reference's f32 masters and casts them to ``cfg.dtype`` at each use, as
@@ -41,6 +46,7 @@ A 1×1 mesh computes exactly what no mesh does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, List, Optional, Tuple
 
@@ -62,6 +68,7 @@ from .common import (
     embed_apply,
     for_serving,
     normal_,
+    remat,
     round_for_serving,
     row_parallel,
     silu,
@@ -99,7 +106,7 @@ class TransformerConfig:
     final_softcap: Optional[float] = None
     rope_base: float = 10000.0
     # --- execution ---
-    remat: bool = True                 # kept, ignored (no recomputation)
+    remat: bool = True                 # per-unit recomputation (module doc)
     attn_impl: str = "dense"           # CPU only: "dense" | "chunked"
     q_chunk: int = 512
     kv_chunk: int = 1024
@@ -334,16 +341,35 @@ def transformer_apply(model: Transformer, tokens: torch.Tensor,
     With ``cache`` (from `init_decode_cache`, at least S positions) the
     forward also fills it, so decoding can go on at position S: a serving
     prefill.  The reference replays the prompt through decode instead."""
+    cfg = model.cfg
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = _embed(model, tokens)
     caches = [None] * len(model.layers) if cache is None else cache
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for blk, layer_cache in zip(model.layers, caches):
-        x, a = blk(x, positions, model.cfg, layer_cache)
-        if a is not None:
+    # the reference's checkpoint unit: its scan step, one layer or a
+    # (local, global) pair
+    k = cfg.layers_per_step
+    for i in range(0, len(model.layers), k):
+        unit = functools.partial(_run_layers, model.layers[i:i + k], cfg,
+                                 caches[i:i + k])
+        if cfg.remat and cache is None:
+            x, auxes = remat(unit, x, positions)
+        else:
+            x, auxes = unit(x, positions)
+        for a in auxes:
             aux = aux + a
     return _logits(model, x), aux
+
+
+def _run_layers(blocks, cfg: TransformerConfig, caches, x, positions):
+    """``blocks`` in order from ``x``: (x, the MoE blocks' aux losses)."""
+    auxes = []
+    for blk, layer_cache in zip(blocks, caches):
+        x, a = blk(x, positions, cfg, layer_cache)
+        if a is not None:
+            auxes.append(a)
+    return x, auxes
 
 
 def lm_loss(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor,

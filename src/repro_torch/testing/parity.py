@@ -36,8 +36,11 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import flash_attention_ref
 from ..kernels.frontier_expand.ops import frontier_expand_level
 from ..kernels.frontier_expand.ref import frontier_expand_ref
-from ..kernels.gather_aggregate.ops import gather_aggregate
-from ..kernels.gather_aggregate.ref import gather_aggregate_ref
+from ..kernels.gather_aggregate.ops import (gather_aggregate,
+                                            gather_aggregate_csr,
+                                            padded_to_csr)
+from ..kernels.gather_aggregate.ref import (gather_aggregate_csr_ref,
+                                            gather_aggregate_ref)
 from ..kernels.mis_bitmap.kernel import mis_bitmap_select
 
 __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
@@ -45,7 +48,8 @@ __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
            "max_abs_diff", "frontier_work", "mis_rows_scanned",
            "FLASH_CASES", "FLASH_TOL", "flash_inputs", "flash_case",
            "BAG_CASES", "BAG_TOL", "bag_case", "AGG_CASES", "AGG_TOL",
-           "agg_case", "FLASH_BWD_CASES", "FLASH_BWD_TOL", "flash_bwd_case",
+           "agg_case", "AGG_CSR_CASES", "agg_csr_case", "agg_csr_t_case",
+           "FLASH_BWD_CASES", "FLASH_BWD_TOL", "flash_bwd_case",
            "BAG_BWD_CASES", "BAG_BWD_TOL", "bag_bwd_case", "AGG_T_CASES",
            "AGG_T_TOL", "agg_t_case", "grads_close", "ADAMW_CASES",
            "adamw_case", "GNN_OUT_TOL", "gnn_card_against_cpu"]
@@ -493,6 +497,64 @@ def agg_case(case, device, seed=0) -> float:
                            AGG_TOL[dtype])
 
 
+# the aggregate over CSR segments: (name, N, F, Dmax, dtype, mean[,
+# "star"]).  AGG_CASES' geometry and the GNN path's widths (16, 100, 128,
+# 1 433), each padded table read as its rows' valid ids (`padded_to_csr`:
+# pads dropped, a third of the rows empty); and stars (a seventh field):
+# row 0 takes Dmax ids, every other row at most 3 or none, so one hub's
+# segment is ~10³ times the rest.
+AGG_CSR_CASES = [
+    *[(f"N{N}-F{F}-D{Dm}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
+       N, F, Dm, dt, mean)
+      for dt in (_F32, _BF16) for mean in (False, True)
+      for N, F, Dm in ((1001, 8, 1), (1001, 602, 15), (333, 7, 40),
+                       (1001, 16, 15), (1001, 100, 15), (1001, 128, 15),
+                       (203, 1433, 15))],
+    *[(f"star{Dm}-F{F}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
+       8192, F, Dm, dt, mean, "star")
+      for dt in (_F32, _BF16) for mean, F in ((True, 128), (False, 100))
+      for Dm in (5000,)],
+]
+
+
+def agg_star_inputs(N, F, Dmax, dtype, device, seed=0):
+    """features (N, F) N(0, 1); nbrs (N, Dmax): row 0 names Dmax nodes, a
+    third of the other rows none, the rest up to 3 (pads drawn in)."""
+    rng = np.random.default_rng(seed)
+    feats = torch.as_tensor(rng.normal(size=(N, F)), dtype=torch.float32)
+    nbrs = np.full((N, Dmax), -1, np.int32)
+    nbrs[0] = rng.integers(0, N, Dmax)
+    nbrs[1:, :3] = rng.integers(-1, N, (N - 1, 3))
+    nbrs[1:][rng.random(N - 1) < 1 / 3] = -1
+    return (feats.to(device=device, dtype=dtype),
+            torch.as_tensor(nbrs).to(device))
+
+
+def _agg_csr_inputs(case, device, seed):
+    name, N, F, Dmax, dtype, mean, *variant = case
+    make = agg_star_inputs if variant == ["star"] else agg_inputs
+    feats, nbrs = make(N, F, Dmax, dtype, device, seed)
+    return feats, nbrs, padded_to_csr(nbrs)
+
+
+def agg_csr_case(case, device, seed=0) -> float:
+    """`gather_aggregate_csr` on the CSR of the case's padded table: equal
+    byte for byte to `gather_aggregate` on the table (the one kernel, or
+    the one order of f32 adds), and against its plain version within
+    `AGG_TOL`; returns the largest absolute difference."""
+    name, dtype, mean = case[0], case[4], case[5]
+    feats, nbrs, (indptr, src) = _agg_csr_inputs(case, device, seed)
+    got = gather_aggregate_csr(feats, indptr, src, mean=mean)
+    padded = gather_aggregate(feats, nbrs, mean=mean)
+    if not torch.equal(got, padded):
+        err = float((got.float() - padded.float()).abs().max())
+        raise AssertionError(f"gather_aggregate_csr {name}: differs from the "
+                             f"padded layout's bytes by up to {err}")
+    want = gather_aggregate_csr_ref(feats, indptr, src, mean=mean)
+    return _close_or_raise(f"gather_aggregate_csr {name}", got, want,
+                           AGG_TOL[dtype])
+
+
 # ---------------------------------------------------------------------------
 # backward kernels: each against autograd of its plain forward on f32 copies
 # ---------------------------------------------------------------------------
@@ -722,6 +784,35 @@ def agg_t_case(case, device, seed=0) -> float:
     gather_aggregate_ref(f32, nbrs, mean=mean).backward(d_out.float())
     rtol, atol = AGG_T_TOL[dtype]
     return grads_close(f"gather_aggregate_t {name}", got, f32.grad,
+                       rtol=rtol, atol=atol)
+
+
+def agg_csr_t_case(case, device, seed=0) -> float:
+    """`ops.GatherAggregateCSR`'s backward (the transpose kernel over
+    `ops.csr_transpose` of the in-CSR) against autograd of
+    `gather_aggregate_csr_ref` on f32 copies, within `AGG_T_TOL`; a second
+    backward identical byte for byte.  ``case``: an `AGG_CSR_CASES` entry.
+    Returns the largest absolute difference."""
+    from ..kernels.gather_aggregate.ops import GatherAggregateCSR
+
+    name, N, F, dtype, mean = case[0], case[1], case[2], case[4], case[5]
+    feats, _, (indptr, src) = _agg_csr_inputs(case, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    d_out = torch.as_tensor(rng.normal(size=(N, F)),
+                            dtype=torch.float32).to(device=device, dtype=dtype)
+
+    def kernel_grad():
+        f = feats.detach().clone().requires_grad_()
+        GatherAggregateCSR.apply(f, indptr, src, mean).backward(d_out)
+        return f.grad
+
+    got = kernel_grad()
+    _same_bytes(f"gather_aggregate_t (CSR) {name}", [got], [kernel_grad()])
+    f32 = feats.detach().float().requires_grad_()
+    gather_aggregate_csr_ref(f32, indptr, src, mean=mean).backward(
+        d_out.float())
+    rtol, atol = AGG_T_TOL[dtype]
+    return grads_close(f"gather_aggregate_t (CSR) {name}", got, f32.grad,
                        rtol=rtol, atol=atol)
 
 

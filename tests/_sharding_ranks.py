@@ -4,7 +4,8 @@ without JAX, that ``torch.multiprocessing.spawn`` imports in each rank.
 Every rank of a world size runs the same work and rank 0 pickles what it
 got to ``ws<n>.pkl`` in the shared directory: the reduced train cases at
 each mesh of the world size (the unsharded port too, at world size 1;
-the sequence-parallel attention too, at model-parallel 2), the native and
+the sequence-parallel attention and the first arch with its per-layer
+recomputation on too, at model-parallel 2), the native and
 emulated collectives on each mesh, `compressed_psum` of seeded per-rank
 gradients, and the trainer CLI runs
 (world size 2: ``--model-parallel`` 2 and 3; world size 1: the
@@ -56,10 +57,13 @@ def _whole(plan, tree, moment=False):
             .detach().numpy().copy() for n, t in tree.items()}
 
 
-def train_case(arch_name, inputs, plan):
+def train_case(arch_name, inputs, plan, remat=False):
     """One reduced step of ``arch_name`` on ``plan``'s mesh (None: the
     unsharded port): the loss and gradients of the global batch, then a
-    step from a fresh AdamW state; every leaf whole."""
+    step from a fresh AdamW state; every leaf whole.  ``remat``: the
+    config's per-layer recomputation on (the default policy, full)."""
+    import dataclasses
+
     from repro_torch.models.sharding import shard_parameters_, use_rules
     from repro_torch.models.transformer import lm_loss
     from repro_torch.train.step import (init_opt_state, make_train_step,
@@ -69,7 +73,8 @@ def train_case(arch_name, inputs, plan):
     d = inputs[arch_name]
     if "tree" in d:
         model = interop.transformer_params_from_numpy(
-            d["tree"], arch.config(True), train=True)
+            d["tree"], dataclasses.replace(arch.config(True), remat=remat),
+            train=True)
     else:
         model = arch.init(torch.Generator().manual_seed(d["seed"]),
                           reduced=True, device="cpu", train=True)
@@ -236,6 +241,10 @@ def rank_main(rank: int, ws: int, tmp: str, role: str = "") -> None:
         if mp_size == 2:        # the sequence-parallel attention
             out["train"][(ARCHS[0], 1, 2, "sp")], out["sp_modes"] = \
                 sequence_parallel_case(inputs, mesh)
+            # recomputation: the backward reruns each layer's collectives
+            plan = MeshPlan.for_arch(get_arch(ARCHS[0]), mesh, reduced=True)
+            out["train"][(ARCHS[0], 1, 2, "remat")] = train_case(
+                ARCHS[0], inputs, plan, remat=True)
         if ws > 1:
             out["collectives"][mp_size] = collectives_case(mesh)
     got, _ = t_comp.compressed_psum(

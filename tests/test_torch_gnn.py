@@ -18,10 +18,23 @@ inputs, with the reference's weights carried over by `repro_torch.interop`:
     bf16 kernel tolerance (atol = rtol = 2e-2) and the loss to 1e-3
     relative;
   * `NeighborSampler` blocks bit-exact against ``repro.data.sampler``;
-  * the arch wrapper: shapes and input specs equal, the unported shape
-    (ogb_products, and its training step) raises.
+  * the arch wrapper: shapes and input specs equal on every shape
+    (ogb_products included, which GraphSAGE runs over the CSR aggregate);
+  * CSR segments (GraphSAGE's aggregate): the plain CSR aggregate equal
+    byte for byte to the padded plain version on random tables and on
+    stars (one row of 600 ids, the rest 0–3, empty rows included); `in_csr`
+    rows equal `in_neighbor_table`'s; the transpose built from the in-CSR
+    (`csr_transpose`) replayed against autograd (rtol = atol = 1e-5); the
+    GraphSAGE CSR path on a hub graph against the reference's
+    ``sage_loss`` (logits 2e-2, loss 1e-3, gradients 0.05·max|g| against
+    the reference with its scatter rounded once, as the port's aggregate);
+  * ogb_products: the full batch made at a small size (exact counts,
+    symmetric, no self-loops, padding masked, 100 features, 47 classes);
+    schnet, nequip and graphcast refuse it naming their edge tensor's
+    bytes.
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -48,10 +61,23 @@ from repro_torch.data.sampler import block_graph_batch
 from repro_torch.data.synthetic import rmat_graph as t_rmat
 from repro_torch.data.synthetic import rmat_undirected_graph
 from repro_torch.kernels.gather_aggregate.ops import (
-    gather_aggregate, in_neighbor_table, pad_adjacency,
+    csr_transpose, gather_aggregate, gather_aggregate_csr, in_csr,
+    in_neighbor_table, out_neighbor_csr, pad_adjacency, padded_to_csr,
 )
+from repro_torch.kernels.gather_aggregate.ref import gather_aggregate_t_ref
 from repro_torch.models.gnn import common as t_common
 from repro_torch.models.gnn.graphsage import SAGEConfig, sage_apply, sage_loss
+from repro_torch.testing.parity import (
+    AGG_CSR_CASES, agg_csr_case, agg_inputs, agg_star_inputs,
+)
+from repro_torch.train.step import trainable_params
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the plain aggregates loop over neighbour positions in small ops,
+    # which torch's intra-op threads only slow down beside other workers
+    torch.set_num_threads(1)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -273,7 +299,7 @@ def test_shapes_and_specs_equal_reference(shape):
     j_arch, t_arch = j_sage_cfg.ARCH, get_arch("graphsage-reddit")
     assert dataclasses.asdict(t_gnn_arch.GNN_SHAPES[shape]) == \
         dataclasses.asdict(j_gnn_arch.GNN_SHAPES[shape])
-    if shape not in t_gnn_arch.PORTED_SHAPES:
+    if shape not in t_arch.ported_shapes:
         for call in (t_arch.loss_fn, t_arch.input_specs,
                      t_arch.reduced_inputs):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -289,7 +315,7 @@ def test_shapes_and_specs_equal_reference(shape):
                 w = getattr(want, k)
                 assert spec.shape == w.shape, k
                 assert str(spec.dtype)[6:] == str(w.dtype), k
-    if shape not in t_gnn_arch.PORTED_SHAPES:
+    if shape not in t_arch.ported_shapes:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_arch.step_fn(shape)
     else:
@@ -328,3 +354,173 @@ def test_rmat_undirected_graph_has_the_exact_edge_count(n, n_edges, seed):
 def test_minibatch_graph_has_the_requested_edges():
     g = get_arch("graphsage-reddit").graph("minibatch_lg", n_edges=40_000)
     assert (g.n, g.n_edges) == (232_965, 40_000)
+
+
+# ---------------------------------------------------------------------------
+# CSR segments: GraphSAGE's aggregate since ogb_products (sage_apply builds
+# the in-neighbour CSR once a batch, `in_csr`); its plain version adds each
+# row's ids in order in f32, as the padded one does, so the two layouts'
+# bytes are equal (the card's kernel is held to both: test_torch_gpu.py)
+# ---------------------------------------------------------------------------
+
+CSR_CPU_CASES = [c for c in AGG_CSR_CASES if len(c) == 6] + [
+    (f"star600-F{F}-{str(dt)[6:]}-{'mean' if mean else 'sum'}", 2048, F, 600,
+     dt, mean, "star")
+    for dt in (torch.float32, torch.bfloat16)
+    for mean, F in ((True, 128), (False, 100))]
+
+
+@pytest.mark.parametrize("case", CSR_CPU_CASES,
+                         ids=[c[0] for c in CSR_CPU_CASES])
+def test_csr_plain_equals_padded_plain(case):
+    # random tables read as CSR (pads dropped, a third of the rows empty)
+    # and stars (one row of 600 ids, the others 0–3): equal bytes
+    assert agg_csr_case(case, "cpu") == 0.0
+
+
+def test_in_csr_rows_equal_the_padded_table():
+    rng = np.random.default_rng(8)
+    n, e = 60, 500
+    src = torch.as_tensor(rng.integers(0, n, e).astype(np.int32))
+    dst = torch.as_tensor(np.where(rng.random(e) < 0.4, 3,
+                                   rng.integers(0, n, e)).astype(np.int32))
+    mask = torch.as_tensor(rng.random(e) < 0.8)
+    indptr, csr_src = in_csr(src, dst, mask, n)
+    assert indptr.dtype == csr_src.dtype == torch.int32
+    assert int(indptr[-1]) == int(mask.sum()) == csr_src.numel()
+    table = in_neighbor_table(src, dst, mask, n)
+    for v in range(n):
+        row = csr_src[indptr[v]:indptr[v + 1]]
+        np.testing.assert_array_equal(table[v, :row.numel()].numpy(),
+                                      row.numpy())
+        assert (table[v, row.numel():] == -1).all()
+    assert torch.equal(padded_to_csr(table)[1], csr_src)
+
+
+@pytest.mark.parametrize("case", [c for c in CSR_CPU_CASES
+                                  if c[4] == torch.float32][::4],
+                         ids=lambda c: c[0])
+def test_csr_transpose_replays_autograd(case):
+    # the transpose kernel's input, built from the in-CSR by a stable sort,
+    # replayed in plain torch against autograd of the plain CSR aggregate
+    name, N, F, Dmax, dtype, mean, *variant = case
+    make = agg_star_inputs if variant else agg_inputs
+    feats, nbrs = make(N, F, Dmax, dtype, "cpu", seed=9)
+    indptr, src = padded_to_csr(nbrs)
+    t_indptr, dst, deg = csr_transpose(indptr, src)
+    for a, b in zip(out_neighbor_csr(nbrs), (t_indptr, dst, deg)):
+        assert torch.equal(a, b)                      # the padded table's
+    for u in range(0, N, max(N // 50, 1)):            # destinations ascending
+        rows = dst[t_indptr[u]:t_indptr[u + 1]].numpy()
+        assert (np.diff(rows) >= 0).all()
+    d_out = torch.as_tensor(np.random.default_rng(10).normal(size=(N, F)),
+                            dtype=torch.float32)
+    got = gather_aggregate_t_ref(d_out, t_indptr, dst, deg if mean else None)
+    f = feats.clone().requires_grad_()
+    gather_aggregate_csr(f, indptr, src, mean=mean).backward(d_out)
+    np.testing.assert_allclose(got.numpy(), f.grad.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _ref_scatter_mean_once(messages, dst, mask, n_nodes):
+    """The reference's ``scatter_mean`` with its sums taken in f32 and
+    rounded once, as the port's aggregate does (its bf16 ``.at[].add``
+    rounds after every add: ~225 adds into the hub below)."""
+    msg = jnp.where(mask[:, None], messages, 0).astype(jnp.float32)
+    s = jnp.zeros((n_nodes, messages.shape[-1]), jnp.float32).at[dst].add(msg)
+    deg = jnp.zeros((n_nodes,), jnp.float32).at[dst].add(
+        mask.astype(jnp.float32))
+    return (s / jnp.maximum(deg, 1)[:, None]).astype(messages.dtype)
+
+
+def test_sage_csr_path_on_a_hub_graph_matches_reference():
+    # node 0 takes in-edges from 250 of 300 nodes, the rest ~2 each (some
+    # masked): the port's CSR aggregate against the reference's gather +
+    # bf16 scatter_mean — logits 2e-2, loss 1e-3 — and its gradients,
+    # 0.05·max|g| leaf by leaf, against the reference's with the scatter
+    # summed in f32 and rounded once (`_ref_scatter_mean_once`: the hub's
+    # ~225 bf16 roundings alone move neigh.0's gradient 0.075·max|g|)
+    rng = np.random.default_rng(11)
+    n, F = 300, 24
+    hub_src = rng.choice(np.arange(1, n), 250, replace=False)
+    src = np.concatenate([hub_src, rng.integers(0, n, 600)]).astype(np.int32)
+    dst = np.concatenate([np.zeros(250, np.int32),
+                          rng.integers(0, n, 600).astype(np.int32)])
+    mask = rng.random(src.size) < 0.9
+    feats = rng.normal(size=(n, F)).astype(np.float32)
+    labels = rng.integers(0, 5, n).astype(np.int32)
+    gb_j = j_common.GraphBatch(
+        x=jnp.asarray(feats), edge_src=jnp.asarray(src),
+        edge_dst=jnp.asarray(dst), edge_mask=jnp.asarray(mask),
+        node_mask=jnp.ones(n, bool), graph_ids=jnp.zeros(n, jnp.int32),
+        n_graphs=1, targets=jnp.asarray(labels))
+    gb_t = interop.graph_batch_from_numpy(gb_j)
+    jcfg = j_sage.SAGEConfig(d_in=F, d_hidden=16, n_classes=5)
+    params = j_sage.sage_init(jax.random.key(4), jcfg)
+    model = interop.sage_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params),
+        SAGEConfig(d_in=F, d_hidden=16, n_classes=5), train=True)
+    with torch.no_grad():
+        _assert_logits_close(sage_apply(model, gb_t),
+                             j_sage.sage_apply(params, jcfg, gb_j))
+    t_params = trainable_params(model)
+    t_loss = sage_loss(model, gb_t)
+    assert float(t_loss) == pytest.approx(
+        float(j_sage.sage_loss(params, jcfg, gb_j)), rel=1e-3)
+    with mock.patch.object(j_sage, "scatter_mean", _ref_scatter_mean_once):
+        loss, grads = jax.jit(jax.value_and_grad(j_sage.sage_loss),
+                              static_argnums=1)(params, jcfg, gb_j)
+    assert float(t_loss) == pytest.approx(float(loss), rel=1e-3)
+    t_grads = dict(zip(t_params, torch.autograd.grad(
+        t_loss, list(t_params.values()))))
+    want_tree = jax.tree_util.tree_map(np.asarray, grads)
+    for entry in interop.param_entries(model):
+        want = interop._read(want_tree, entry)
+        got = t_grads[entry[0]].numpy()
+        assert np.abs(got - want).max() <= 0.05 * np.abs(want).max(), entry[0]
+
+
+# ---------------------------------------------------------------------------
+# ogb_products: GraphSAGE's full batch; the other archs refuse it
+# ---------------------------------------------------------------------------
+
+def test_ogb_products_batch_at_a_small_size():
+    arch = get_arch("graphsage-reddit")
+    meta = t_gnn_arch.GNN_SHAPES["ogb_products"].meta
+    small = {"n_nodes": 3000, "n_edges": 40_000}
+    with mock.patch.dict(meta, small):
+        gb = arch.inputs("ogb_products", seed=2, device="cpu")
+        specs = arch.input_specs("ogb_products")
+    for k, spec in specs.items():
+        t = getattr(gb, k)
+        assert (tuple(t.shape), t.dtype) == (spec.shape, spec.dtype), k
+    N, E = small["n_nodes"], small["n_edges"]
+    assert gb.x.shape == (3072, 100) and gb.edge_src.shape == (40_448,)
+    assert int(gb.node_mask.sum()) == N and bool(gb.node_mask[:N].all())
+    assert int(gb.edge_mask.sum()) == E and bool(gb.edge_mask[:E].all())
+    src, dst = gb.edge_src[:E].long(), gb.edge_dst[:E].long()
+    assert bool((src != dst).all()) and int(max(src.max(), dst.max())) < N
+    keys = src * N + dst
+    assert torch.equal(torch.sort(keys).values,
+                       torch.sort(dst * N + src).values)    # symmetric
+    assert torch.unique(keys).numel() == E
+    assert float(gb.x[N:].abs().sum()) == 0.0
+    assert gb.targets.dtype == torch.int32
+    assert 0 <= int(gb.targets.min()) and int(gb.targets.max()) < 47
+    # the full size: the padded sizes of the reference's specs
+    assert arch.input_specs("ogb_products")["x"].shape == (2_449_408, 100)
+    assert arch.input_specs("ogb_products")["edge_src"].shape == (61_859_328,)
+
+
+@pytest.mark.parametrize("name,what,width,size", [
+    ("graphcast", "edge state (E, 512) bf16", 512, 2),
+    ("schnet", "RBF expansion (E, 300) bf16", 300, 2),
+    ("nequip", "rank-2 messages (E, 32·9) f32", 32 * 9, 4)])
+def test_ogb_products_refusal_names_the_bytes(name, what, width, size):
+    E = 61_859_140
+    for call in ("input_specs", "inputs", "step_fn", "config"):
+        with pytest.raises(NotImplementedError) as err:
+            getattr(get_arch(name), call)("ogb_products")
+        msg = str(err.value)
+        assert what in msg and f"{E * width * size / 1e9:.1f} GB" in msg
+        assert "Queue 1 item 7" in msg

@@ -58,7 +58,6 @@ from repro.models.gnn import schnet as j_schnet
 from repro.train import optimizer as j_opt
 
 from repro_torch import interop
-from repro_torch.configs import gnn_arch as t_gnn_arch
 from repro_torch.configs.registry import get_arch, list_archs
 from repro_torch.models.gnn import common as t_common
 from repro_torch.models.gnn.graphcast import graphcast_apply, graphcast_init
@@ -352,7 +351,7 @@ J_ARCHS = {"schnet": j_schnet_cfg, "nequip": j_nequip_cfg,
 def test_input_specs_equal_reference(arch, shape):
     j_arch, t_arch = J_ARCHS[arch].ARCH, get_arch(arch)
     assert t_arch.needs_positions == j_arch.needs_positions
-    if shape not in t_gnn_arch.PORTED_SHAPES:
+    if shape not in t_arch.ported_shapes:
         for call in (t_arch.input_specs, t_arch.reduced_inputs,
                      t_arch.step_fn, t_arch.inputs):
             with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -34,14 +34,16 @@ from repro_torch.launch import serve as t_serve
 from repro_torch.models.transformer import transformer_apply, transformer_init
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
-from repro_torch.kernels.gather_aggregate.kernel import gather_aggregate_nf
+from repro_torch.kernels.gather_aggregate.kernel import (
+    gather_aggregate_csr_nf, gather_aggregate_nf,
+)
 from repro_torch.models.gnn.graphsage import sage_apply
 from repro_torch.testing.parity import (
-    ADAMW_CASES, AGG_CASES, AGG_T_CASES, BAG_BWD_CASES, BAG_CASES,
-    FLASH_BWD_CASES, FLASH_CASES, MIS_EDGE_CASES, adamw_case, agg_case,
-    agg_t_case, bag_bwd_case, bag_case, flash_bwd_case, flash_case,
-    flash_inputs, frontier_case, mis_case, mis_edge_case, patterns_by_k,
-    random_graph,
+    ADAMW_CASES, AGG_CASES, AGG_CSR_CASES, AGG_T_CASES, BAG_BWD_CASES,
+    BAG_CASES, FLASH_BWD_CASES, FLASH_CASES, MIS_EDGE_CASES, adamw_case,
+    agg_case, agg_csr_case, agg_csr_t_case, agg_t_case, bag_bwd_case,
+    bag_case, flash_bwd_case, flash_case, flash_inputs, frontier_case,
+    mis_case, mis_edge_case, patterns_by_k, random_graph,
 )
 
 pytestmark = pytest.mark.gpu
@@ -566,6 +568,15 @@ def test_gather_aggregate_matches_plain(cuda, case):
     agg_case(case, cuda)
 
 
+@pytest.mark.parametrize("case", AGG_CSR_CASES,
+                         ids=[c[0] for c in AGG_CSR_CASES])
+def test_gather_aggregate_csr_matches_plain(cuda, case):
+    # the padded cases read as CSR (pads dropped, empty rows), F 16, 100,
+    # 128, 1 433 and the rest, f32 / bf16, sum / mean, and stars of one
+    # 5 000-id row: the padded kernel's bytes, and its plain version
+    agg_csr_case(case, cuda)
+
+
 def test_bag_and_aggregate_kernels_reject_bad_inputs(cuda):
     tables = torch.zeros(2, 10, 8, device=cuda)
     with pytest.raises(ValueError, match="ids"):
@@ -578,6 +589,15 @@ def test_bag_and_aggregate_kernels_reject_bad_inputs(cuda):
         gather_aggregate_nf(torch.zeros(4, 8, dtype=torch.float16,
                                         device=cuda),
                             torch.zeros(4, 2, dtype=torch.int32, device=cuda))
+    feats = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="indptr"):
+        gather_aggregate_csr_nf(feats, torch.zeros(4, dtype=torch.int32,
+                                                   device=cuda),
+                                torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="src"):
+        gather_aggregate_csr_nf(feats, torch.zeros(5, dtype=torch.int32,
+                                                   device=cuda),
+                                torch.zeros(2, dtype=torch.int64, device=cuda))
 
 
 @pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
@@ -613,10 +633,11 @@ def test_reduced_sage_cuda_matches_cpu(cuda):
     gb = arch.reduced_inputs("minibatch_lg", device="cpu")
     gb_cuda = arch.reduced_inputs("minibatch_lg", device=cuda)
     want = sage_apply(cpu_model, gb)
-    before = gather_aggregate_nf.launches
+    before = gather_aggregate_csr_nf.launches
     got = sage_apply(cuda_model, gb_cuda)
     torch.cuda.synchronize()
-    assert gather_aggregate_nf.launches - before == cpu_model.cfg.n_layers
+    # GraphSAGE aggregates over CSR segments: a launch a layer
+    assert gather_aggregate_csr_nf.launches - before == cpu_model.cfg.n_layers
     torch.testing.assert_close(got.float().cpu(), want.float(), atol=2e-2,
                                rtol=2e-2)
     loss = arch.loss_fn("minibatch_lg", reduced=True)(cuda_model, gb_cuda)
@@ -642,6 +663,46 @@ def test_embedding_bag_bwd_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", AGG_T_CASES, ids=[c[0] for c in AGG_T_CASES])
 def test_gather_aggregate_t_matches_plain(cuda, case):
     agg_t_case(case, cuda)              # raises past AGG_T_TOL
+
+
+@pytest.mark.parametrize("case", AGG_CSR_CASES,
+                         ids=[c[0] for c in AGG_CSR_CASES])
+def test_gather_aggregate_t_csr_matches_plain(cuda, case):
+    agg_csr_t_case(case, cuda)          # raises past AGG_T_TOL
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_full_width_block_grads_equal_none(cuda, policy, monkeypatch):
+    """qwen3-1.7b at full width, one layer (a checkpoint unit), batch 2 ×
+    256: the loss and every gradient under recomputation equal those
+    under ``none`` bit for bit (the recomputed forward reruns the same
+    kernels on the same inputs)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+    )
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.step import trainable_params
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").cfg, n_layers=1,
+                              remat=True)
+    model = transformer_init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda, train=True)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 257)), dtype=torch.int64, device=cuda)
+    params = trainable_params(model)
+    runs = {}
+    for name in ("none", policy):
+        monkeypatch.setenv("REPRO_REMAT_POLICY", name)
+        before = flash_attention_bhsd.launches
+        loss = lm_loss(model, toks[:, :-1], toks[:, 1:])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        runs[name] = (loss.detach(), grads,
+                      flash_attention_bhsd.launches - before)
+    assert runs["none"][2] == 1 and runs[policy][2] == 2   # recomputed
+    assert torch.equal(runs[policy][0], runs["none"][0])
+    for n, a, b in zip(params, runs[policy][1], runs["none"][1]):
+        assert torch.equal(a, b), n
 
 
 @pytest.mark.parametrize("case", ADAMW_CASES, ids=[c[0] for c in ADAMW_CASES])

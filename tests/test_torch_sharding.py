@@ -25,7 +25,9 @@
     after a step within 2·lr₁ + 1e-6, first moments within 0.05·max|m|;
     qwen3's loss and gradients also against the reference's, to the same
     bounds; qwen3 at 1×2 under ``REPRO_ATTN_MODE=sp`` (the
-    sequence-parallel attention) too.  Each rank's shards have the shapes
+    sequence-parallel attention) too; qwen3 at 1×2 with ``remat`` (each
+    layer's collectives rerun in the backward) equal to 1×2 without it,
+    bit for bit.  Each rank's shards have the shapes
     its spec gives;
   * collectives: at world sizes 2 and 4, gloo's own all-gather and
     reduce-scatter and their ``all_reduce`` emulation both equal the
@@ -473,6 +475,20 @@ def test_sequence_parallel_step_within_tolerance(runs, lm_ref):
     assert runs[2]["sp_modes"] == {False}
     _check_step(runs[2]["train"][(arch, 1, 2, "sp")], _case(runs, arch, 0, 0),
                 lm_ref, arch)
+
+
+def test_remat_step_equals_no_remat(runs):
+    """qwen3 at 1×2 with ``remat`` (each layer recomputed in the backward,
+    its collectives rerun there on both ranks): the same loss, gradients,
+    parameters and moments as without it, bit for bit."""
+    arch = R.ARCHS[0]
+    base = _case(runs, arch, 1, 2)
+    got = runs[2]["train"][(arch, 1, 2, "remat")]
+    assert got["loss"] == base["loss"]
+    assert got["step_loss"] == base["step_loss"]
+    for key in ("grads", "params", "mu"):
+        for n, w in base[key].items():
+            assert got[key][n].tobytes() == w.tobytes(), (key, n)
 
 
 @pytest.mark.parametrize("ws", [2, 4])

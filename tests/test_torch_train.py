@@ -44,7 +44,9 @@ by `_exact`.  Tolerances:
     on the parameters and moments of an uninterrupted run, bit for bit.
 """
 import dataclasses
+import os
 import re
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -245,7 +247,8 @@ def lm_ref(tmp_path_factory):
     return SharedParts(tmp_path_factory, "torch-train-lm_ref", {
         "base": (("tree", "tokens", "targets", "opt"), _lm_base),
         "grads": (("loss", "grads"), _lm_grads),
-        "step": (("step_loss", "step_state"), _lm_step)})
+        "step": (("step_loss", "step_state"), _lm_step),
+        "remat": (("remat_loss", "remat_grads"), _lm_remat_grads)})
 
 
 def _lm_base(_):
@@ -262,6 +265,18 @@ def _lm_grads(ref):
                          j_qwen3.REDUCED, jnp.asarray(ref["tokens"]),
                          jnp.asarray(ref["targets"]), static_argnums=(1,))
     return dict(loss=float(loss), grads=_j(grads))
+
+
+def _lm_remat_grads(ref):
+    """`_lm_grads` with ``remat=True``: each layer under ``jax.checkpoint``
+    (the reference's default policy, ``full``; test_torch_remat.py)."""
+    cfg = dataclasses.replace(j_qwen3.REDUCED, remat=True)
+    with mock.patch.dict(os.environ, {"REPRO_REMAT_POLICY": "full"}):
+        loss, grads = _exact(jax.value_and_grad(j_lm_loss),
+                             _jnp(ref["tree"]), cfg,
+                             jnp.asarray(ref["tokens"]),
+                             jnp.asarray(ref["targets"]), static_argnums=(1,))
+    return dict(remat_loss=float(loss), remat_grads=_j(grads))
 
 
 def _ref_step(ref, opt):
@@ -608,12 +623,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
 
 
 def test_train_steps_equal_reference_shapes():
-    for shape in j_gnn_arch.GNN_SHAPES:
-        if shape == "ogb_products":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_arch("graphsage-reddit").step_fn(shape)
-        else:
-            assert callable(get_arch("graphsage-reddit").step_fn(shape))
+    for shape in j_gnn_arch.GNN_SHAPES:     # ogb_products: CSR aggregate
+        assert callable(get_arch("graphsage-reddit").step_fn(shape))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_arch("graphcast").step_fn("ogb_products")
     assert dataclasses.asdict(get_arch("dlrm-rm2").opt) == \
         dataclasses.asdict(j_recsys.RecsysArch("x", j_recsys.CONFIG,
                                                j_recsys.REDUCED).opt)
