@@ -31,8 +31,15 @@ line):
                pads and ids ≥ R, T 1, 2, 3 and 26, weights, D 8, 9, 64,
                72, 128, ragged B·T, a table view one element off its
                alignment; exact at H = 1, else `BAG_TOL`)
-               and the gather-aggregate (`AGG_CASES`: Dmax 1, 15, 40, F 7,
-               8, 128, 602, ragged N; `AGG_TOL`); the three backward
+               and the gather-aggregate, byte for byte (`AGG_CASES`: Dmax
+               1, 15, 40, F 7, 8, 128, 602, ragged N; `AGG_CSR_CASES`: the
+               same tables read as CSR, F 16 to 1 433, stars of 5 000 ids,
+               and rows around and past `LONG_ROW` — rows of T − 1, T and
+               T + 1 ids, a star of 100 000, 400 rows of 2T, one long row
+               among 200 000 empty ones — at F 7, 100, 128 and 602, each
+               equal to the plain version, to the padded layout where its
+               table stays under 256 MB, and a long case's second launch
+               to its first); the three backward
                kernels against autograd of their plain forwards on f32
                copies, each launched twice with identical bytes: the
                flash backward (`FLASH_BWD_CASES`: the trainer's qwen3
@@ -146,9 +153,12 @@ line):
                of its readings, the median step and peak; the logits equal
                to the same forward with the plain CSR aggregate; the
                aggregate timed at F 100 and 128 and the transpose at 128,
-               each beside its bound and ``torch.sparse.mm`` on the same
-               CSR; the transpose held to autograd of the plain CSR
-               forward on f32 copies over the rows around the largest hub
+               each beside its bound, ``torch.sparse.mm`` on the same CSR
+               and the CUDA operations a call puts on the card (the
+               profiler's count), with the aggregate's schedule: LONG_ROW,
+               the long rows and their share of nnz; the transpose held to
+               autograd of the plain CSR forward on f32 copies over the
+               rows around the largest hub
                (`AGG_T_TOL`), launched twice (identical bytes);
   8d. graphcast-remat — graphcast at full width, 4 layers, on molecule and
                full_graph_sm with its processor blocks recomputed (the
@@ -403,6 +413,20 @@ def _device_ms_by_kernel(fn) -> dict:
             name = kernel_function(ev.key)[:40]
             out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3
     return out
+
+
+def _cuda_ops(fn) -> int:
+    """CUDA operations (kernels, memsets, copies) one call of fn puts on
+    the card, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
 
 
 def _peak_extra_bytes(fn, out_bytes: int) -> int:
@@ -1294,9 +1318,10 @@ def phase_flash_kernel(dev) -> dict:
 def phase_bag_agg_parity(dev) -> dict:
     """The embedding-bag and gather-aggregate kernels against their plain
     versions on the parity cases; the worst error of each."""
+    from repro_torch.kernels.gather_aggregate.kernel import LONG_ROW
     from repro_torch.testing.parity import (
-        AGG_CASES, AGG_CSR_CASES, AGG_TOL, BAG_CASES, BAG_TOL, agg_case,
-        agg_csr_case, bag_case,
+        AGG_CASES, AGG_CSR_CASES, BAG_CASES, BAG_TOL, LONG_GEOMETRIES,
+        agg_case, agg_csr_case, bag_case,
     )
 
     worst = {"embedding_bag": 0.0, "gather_aggregate": 0.0}
@@ -1308,15 +1333,20 @@ def phase_bag_agg_parity(dev) -> dict:
     for case in AGG_CASES:
         err = agg_case(case, dev)
         worst["gather_aggregate"] = max(worst["gather_aggregate"], err)
-    _log(f"parity: gather_aggregate == plain on {len(AGG_CASES)} cases "
-         f"(atol = rtol = {AGG_TOL}); max_abs_err="
+    _log(f"parity: gather_aggregate == plain byte for byte on "
+         f"{len(AGG_CASES)} cases; max_abs_err="
          f"{worst['gather_aggregate']:.3g}")
+    t0 = time.monotonic()
     csr = max(agg_csr_case(case, dev) for case in AGG_CSR_CASES)
     worst["gather_aggregate"] = max(worst["gather_aggregate"], csr)
-    _log(f"parity: gather_aggregate over CSR segments == the padded "
-         f"layout's bytes and == plain on {len(AGG_CSR_CASES)} cases (F 7 "
-         f"to 1 433, stars of one 5 000-id row; atol = rtol = {AGG_TOL}); "
-         f"max_abs_err={csr:.3g}")
+    long_cases = sum(len(c) > 6 and c[6] != "star" for c in AGG_CSR_CASES)
+    _log(f"parity: gather_aggregate over CSR segments == plain and == the "
+         f"padded layout byte for byte on {len(AGG_CSR_CASES)} cases (F 7 "
+         f"to 1 433, stars of one 5 000-id row, and {long_cases} cases "
+         f"around and past LONG_ROW = {LONG_ROW}: "
+         f"{[g for g, _, _ in LONG_GEOMETRIES]}, each launched twice with "
+         f"identical bytes); max_abs_err={csr:.3g} "
+         f"({time.monotonic() - t0:.1f} s)")
     return worst
 
 
@@ -1807,7 +1837,7 @@ def phase_backward_parity(dev) -> dict:
     AdamW against its plain version (bit for bit); the worst error of
     each."""
     from repro_torch.testing.parity import (
-        ADAMW_CASES, AGG_CSR_CASES, AGG_T_CASES, AGG_T_TOL, BAG_BWD_CASES,
+        ADAMW_CASES, AGG_CSR_T_CASES, AGG_T_CASES, AGG_T_TOL, BAG_BWD_CASES,
         BAG_BWD_TOL, FLASH_BWD_CASES, FLASH_BWD_TOL, adamw_case,
         agg_csr_t_case, agg_t_case, bag_bwd_case, flash_bwd_case,
     )
@@ -1824,11 +1854,12 @@ def phase_backward_parity(dev) -> dict:
              f"{len(cases)} cases (tolerance {tol}), a second launch "
              f"byte-identical; max_abs_err by case: "
              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-    csr = max(agg_csr_t_case(case, dev) for case in AGG_CSR_CASES)
+    csr = max(agg_csr_t_case(case, dev) for case in AGG_CSR_T_CASES)
     worst["gather_aggregate_t"] = max(worst["gather_aggregate_t"], csr)
     _log(f"parity: gather_aggregate_t over the transpose of the in-CSR "
          f"(GatherAggregateCSR's backward) == autograd of the plain CSR "
-         f"aggregate on {len(AGG_CSR_CASES)} cases (tolerance {AGG_T_TOL}), "
+         f"aggregate on {len(AGG_CSR_T_CASES)} cases (tolerance "
+         f"{AGG_T_TOL}), "
          f"a second launch byte-identical; max_abs_err={csr:.3g}")
     worst["adamw"] = max(adamw_case(case, dev) for case in ADAMW_CASES)
     _log(f"parity: adamw == its plain version bit for bit on "
@@ -2752,7 +2783,7 @@ def phase_train_gnn_ogb(dev) -> dict:
     from repro_torch.configs import gnn_arch as gnn_arch_mod
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.gather_aggregate.kernel import (
-        gather_aggregate_csr_nf, gather_aggregate_t_nf,
+        LONG_ROW, gather_aggregate_csr_nf, gather_aggregate_t_nf,
     )
     from repro_torch.kernels.gather_aggregate.ops import csr_transpose, in_csr
     from repro_torch.kernels.gather_aggregate.ref import (
@@ -2796,11 +2827,16 @@ def phase_train_gnn_ogb(dev) -> dict:
     hub = int(torch.argmax(deg))
     deg_max, deg_p99 = int(deg[hub]), float(torch.quantile(deg, 0.99))
     empty = float((deg == 0).float().mean())
+    long_rows = deg > LONG_ROW
+    n_long, long_share = int(long_rows.sum()), float(deg[long_rows].sum()
+                                                     / deg.sum())
     _log(f"train-gnn-ogb: {n_real} nodes, {e_real} directed edges (padded "
          f"{N} / {gb.edge_src.shape[0]}), d_feat {gb.x.shape[1]}, "
          f"{meta['n_out']} classes; host R-MAT build {host_s[0]:.1f} s, "
          f"the whole batch {batch_s:.1f} s; in-degree max {deg_max} (node "
-         f"{hub}), p99 {deg_p99:.1f}, empty share {empty:.4f}; in-CSR build "
+         f"{hub}), p99 {deg_p99:.1f}, empty share {empty:.4f}; rows of more "
+         f"than LONG_ROW = {LONG_ROW} ids (the aggregate's long path): "
+         f"{n_long}, {long_share:.4f} of nnz; in-CSR build "
          f"{csr_ms:.3f} ms, its transpose {t_ms:.3f} ms ({card})")
 
     model = arch.init(shape, torch.Generator(device=dev).manual_seed(0),
@@ -2888,6 +2924,7 @@ def phase_train_gnn_ogb(dev) -> dict:
             lib_vals = (1.0 / d_in.clamp(min=1).float()).repeat_interleave(
                 d_in)
         ms = _time_ms(fn, reps=5)
+        cuda_ops = _cuda_ops(fn)
         esize = h.element_size()
         # the contract's bound: each input read once (every node's row is
         # some node's neighbour), the ids, each output row written once;
@@ -2914,11 +2951,15 @@ def phase_train_gnn_ogb(dev) -> dict:
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "edge_bound_ms": edge_bytes / HBM_BYTES_S * 1e3, "F": Fd}
         rows.setdefault(name, []).append(row)
+        schedule = (f"; LONG_ROW {LONG_ROW}, {n_long} long rows, "
+                    f"{long_share:.4f} of nnz"
+                    if name == "gather_aggregate_csr" else "")
         _log(f"kernels: {name} at ogb_products F={Fd} bf16 mean, nnz "
              f"{nnz} ({card}): ms={ms:.4f} bound_ms={row['bound_ms']:.4f} "
              f"({nbytes} bytes: each row read once; a row read an edge "
              f"{row['edge_bound_ms']:.4f} ms) sparse_mm_ms="
-             f"{library_ms:.4f} ({lib_dtype})")
+             f"{library_ms:.4f} ({lib_dtype}); CUDA operations a call "
+             f"{cuda_ops}{schedule}")
         del adj, lib_h, h
 
     # the transpose at layer 1 against autograd of the plain CSR forward

@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, in turns.
 
-    python scripts/torch_ab.py [--only main|train] PARENT_DIR . . PARENT_DIR
+    python scripts/torch_ab.py [--only main|train|agg] PARENT_DIR . . PARENT_DIR
 
 Each argument is the root of a checkout (for example the parent commit
 unpacked by ``git archive`` into a directory that ``.gitignore`` lists).
@@ -16,17 +16,29 @@ backward at the trainer's per-layer shape against SDPA's backward, the
 train-gnn steps (``step_ms``) and the aggregate transpose at layer 1 of
 block 0 (ms, ``torch.sparse.mm``, and a SHA-256 of its output, which two
 checkouts must share where the kernel's bytes are meant to be equal).
-Both by default.  Prints one line ``AB <dir> {json}`` per checkout, or
-``AB <dir> FAILED``, and exits 1 if any failed.  Alternate the checkouts
-(A B B A) so that a drift of the card's clock shows as a difference
-between the two readings of one checkout.
+Both by default.  ``agg`` (only when asked for): the gather-aggregate
+over CSR segments at ogb_products, F 100 and 128 bf16 mean, beside
+``torch.sparse.mm`` on the same CSR, and at layer 0 of sage-minibatch's
+block 0 (F 602, padded and CSR), with a SHA-256 of the outputs.  Prints
+one line ``AB <dir> {json}`` per checkout, or ``AB <dir> FAILED``, and
+exits 1 if any failed.  Alternate the checkouts (A B B A) so that a drift
+of the card's clock shows as a difference between the two readings of
+one checkout.
+
+A checkout written ``DIR:NAME=VALUE[,NAME=VALUE...]`` is a copy of DIR
+(under ``build/ab_trees/``) in which each ``constexpr int NAME = ...;``
+of ``src/repro_torch/csrc/*.cu`` is set to VALUE: one kernel constant
+timed beside the choice without a build option for it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 CODE = r'''
 import contextlib, io, json, re, sys, time, torch
@@ -109,20 +121,97 @@ print("RESULT " + json.dumps({
     "aggt_sha256": digest}))
 '''
 
+AGG_CODE = r'''
+import hashlib, json, sys, torch
+sys.path[:0] = [".", "src"]
+import chip_smoke as cs
+from repro_torch.configs.registry import get_arch
+from repro_torch.data.sampler import block_graph_batch
+from repro_torch.kernels.gather_aggregate.kernel import (
+    gather_aggregate_csr_nf, gather_aggregate_nf)
+from repro_torch.kernels.gather_aggregate.ops import in_csr, in_neighbor_table
+dev = torch.device("cuda")
+arch = get_arch("graphsage-reddit")
+gen = torch.Generator(device=dev).manual_seed(7)
+digest = hashlib.sha256()
+res = {"card": cs.phase_card()}
+gb = arch.inputs("ogb_products", seed=cs.SAGE_SEED, device=dev)
+N = gb.x.shape[0]
+indptr, src = in_csr(gb.edge_src, gb.edge_dst, gb.edge_mask, N)
+del gb
+deg = torch.diff(indptr)
+vals = (1.0 / deg.clamp(min=1).float()).repeat_interleave(deg)
+adj = torch.sparse_csr_tensor(indptr.long(), src.long(), vals.to(torch.bfloat16),
+                              (N, N), check_invariants=False)
+for F in (100, 128):
+    h = torch.randn((N, F), generator=gen, device=dev).to(torch.bfloat16)
+    fn = lambda: gather_aggregate_csr_nf(h, indptr, src, mean=True)
+    digest.update(cs._sha256(fn()).encode())
+    res[f"ogb_f{F}_ms"] = cs._time_ms(fn, reps=5)
+    res[f"ogb_f{F}_sparse_mm_ms"] = cs._time_ms(lambda: torch.sparse.mm(adj, h),
+                                                reps=5)
+del adj, h, indptr, src
+torch.cuda.empty_cache()
+shape = "minibatch_lg"
+g = arch.graph(shape, seed=cs.SAGE_SEED)
+blk = arch.sampler(g, shape, seed=cs.SAGE_SEED).sample(0)
+feats, labels = arch.node_data(shape, g.n, seed=cs.SAGE_SEED, device=dev)
+b0 = block_graph_batch(blk, feats, labels)
+h0 = b0.x.to(torch.bfloat16)
+nbrs = in_neighbor_table(b0.edge_src, b0.edge_dst, b0.edge_mask, h0.shape[0])
+ip0, src0 = in_csr(b0.edge_src, b0.edge_dst, b0.edge_mask, h0.shape[0])
+digest.update(cs._sha256(gather_aggregate_nf(h0, nbrs, mean=True)).encode())
+digest.update(cs._sha256(gather_aggregate_csr_nf(h0, ip0, src0, mean=True))
+              .encode())
+res["block0_padded_ms"] = cs._time_ms(
+    lambda: gather_aggregate_nf(h0, nbrs, mean=True), reps=20)
+res["block0_csr_ms"] = cs._time_ms(
+    lambda: gather_aggregate_csr_nf(h0, ip0, src0, mean=True), reps=20)
+res["agg_sha256"] = digest.hexdigest()
+print("RESULT " + json.dumps(res))
+'''
+
+
+def tree_copy(spec: str) -> str:
+    """The checkout ``spec`` names: a directory as it is, or for
+    ``DIR:NAME=VALUE[,...]`` a copy of DIR with those kernel constants."""
+    if ":" not in spec:
+        return spec
+    base, sets = spec.split(":", 1)
+    tag = sets.replace(",", "-").replace("=", "")
+    dst = Path("build") / "ab_trees" / tag
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(base, dst, ignore=shutil.ignore_patterns(
+        "build", "chiprun_out", ".git"))
+    for item in sets.split(","):
+        name, value = item.split("=")
+        pattern = re.compile(rf"(constexpr int {name} = )[^;]+;")
+        hits = 0
+        for cu in (dst / "src" / "repro_torch" / "csrc").glob("*.cu"):
+            text, n = pattern.subn(rf"\g<1>{value};", cu.read_text())
+            if n:
+                cu.write_text(text)
+                hits += n
+        if hits != 1:
+            raise SystemExit(f"torch_ab: {name} is defined {hits} times")
+    return str(dst)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["main", "train"],
-                    help="run one group of readings (default: both)")
+    ap.add_argument("--only", choices=["main", "train", "agg"],
+                    help="run one group of readings (default: main and "
+                         "train)")
     ap.add_argument("trees", nargs="*", help="checkout roots, in turn")
     args = ap.parse_args(argv)
     if not args.trees:
         print(__doc__, file=sys.stderr)
         return 2
-    codes = {"main": CODE, "train": TRAIN_CODE}
-    groups = [args.only] if args.only else list(codes)
+    codes = {"main": CODE, "train": TRAIN_CODE, "agg": AGG_CODE}
+    groups = [args.only] if args.only else ["main", "train"]
     failed = False
-    for tree in args.trees:
+    for spec in args.trees:
+        tree = tree_copy(spec)
         result = {}
         for group in groups:
             out = subprocess.run([sys.executable, "-c", codes[group]],
@@ -136,7 +225,7 @@ def main(argv=None) -> int:
                 result = None
                 break
             result.update(json.loads(line[0][7:]))
-        print(f"AB {tree} " + (json.dumps(result) if result is not None
+        print(f"AB {spec} " + (json.dumps(result) if result is not None
                                else "FAILED"), flush=True)
     return 1 if failed else 0
 

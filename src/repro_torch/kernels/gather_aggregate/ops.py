@@ -5,10 +5,13 @@ table, and the index layouts it reads.
 `gather_aggregate_csr` over the batch's in-neighbour CSR (`in_csr`: one
 stable sort of the valid edges by destination, sources kept in edge
 order); `gather_aggregate` over a padded table (pad −1) is the reference
-kernel's interface.  A CUDA tensor launches the kernel (``kernel.py``); a
-CPU tensor takes the plain version (``ref.py``), which autograd
-differentiates; any other device raises.  There is no fallback from the
-kernel to the plain version.
+kernel's interface.  A CUDA tensor launches the kernel (``kernel.py``:
+rows of up to `kernel.LONG_ROW` ids a warp each, longer rows a block per
+column range, scheduled on the card without a host sync); a CPU tensor
+takes the plain version (``ref.py``), which autograd differentiates; any
+other device raises.  Both add a row's terms in neighbour order in f32,
+so they give the same bytes.  There is no fallback from the kernel to the
+plain version.
 
 Under autograd (grad mode on and the features requiring a gradient) a
 CUDA call goes through `GatherAggregateCSR` / `GatherAggregate`, whose

@@ -2,9 +2,10 @@
 
 Every case is built from a numpy seed, runs the CUDA kernel and its plain
 torch version on the same device tensors, and compares every output.  The
-mining kernels compute integers and bits, so their tolerance is zero; the
-flash-attention, embedding-bag and gather-aggregate kernels are held to
-`FLASH_TOL`, `BAG_TOL` and `AGG_TOL` (the reference's own kernel tests'
+mining kernels compute integers and bits, so their tolerance is zero; so
+is the gather-aggregate's, whose kernel adds the plain version's f32
+terms in its order; the flash-attention and embedding-bag kernels are held
+to `FLASH_TOL` and `BAG_TOL` (the reference's own kernel tests'
 tolerances; an embedding bag of one id per bag is held to zero).  The
 training path's backward kernels (flash attention's backward, the bag's
 and the aggregate's transposes) are held to autograd of the plain
@@ -36,6 +37,7 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import flash_attention_ref
 from ..kernels.frontier_expand.ops import frontier_expand_level
 from ..kernels.frontier_expand.ref import frontier_expand_ref
+from ..kernels.gather_aggregate.kernel import LONG_ROW
 from ..kernels.gather_aggregate.ops import (gather_aggregate,
                                             gather_aggregate_csr,
                                             padded_to_csr)
@@ -48,7 +50,9 @@ __all__ = ["random_graph", "patterns_by_k", "frontier_case", "mis_case",
            "max_abs_diff", "frontier_work", "mis_rows_scanned",
            "FLASH_CASES", "FLASH_TOL", "flash_inputs", "flash_case",
            "BAG_CASES", "BAG_TOL", "bag_case", "AGG_CASES", "AGG_TOL",
-           "agg_case", "AGG_CSR_CASES", "agg_csr_case", "agg_csr_t_case",
+           "agg_case", "AGG_CSR_CASES", "AGG_CSR_T_CASES", "LONG_GEOMETRIES",
+           "agg_long_inputs",
+           "agg_csr_case", "agg_csr_t_case",
            "FLASH_BWD_CASES", "FLASH_BWD_TOL", "flash_bwd_case",
            "BAG_BWD_CASES", "BAG_BWD_TOL", "bag_bwd_case", "AGG_T_CASES",
            "AGG_T_TOL", "agg_t_case", "grads_close", "ADAMW_CASES",
@@ -465,7 +469,9 @@ def bag_case(case, device, seed=0) -> float:
 # gather-aggregate: (name, N, F, Dmax, dtype, mean).  Ragged N (not a
 # multiple of the 8 nodes of a block), Dmax 1, 15 and 40 (two ballots of
 # ids), F 8, 128 and GraphSAGE-reddit's 602 (4-byte aligned bf16 rows) and
-# an odd F; a third of the rows all pad, the rest with pads drawn in.
+# an odd F; a third of the rows all pad, the rest with pads drawn in.  The
+# kernel, the plain version and the CSR layout add the same f32 terms in
+# the same order: every case is held to the plain version's bytes.
 AGG_CASES = [
     (f"N{N}-F{F}-D{Dm}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
      N, F, Dm, dt, mean)
@@ -473,6 +479,7 @@ AGG_CASES = [
     for N, F, Dm in ((1001, 8, 1), (1001, 128, 15), (1001, 602, 15),
                      (203, 602, 1), (333, 7, 40))
 ]
+# the GNN archs' pooled logits (cuBLAS beside the CPU's products)
 AGG_TOL = {_F32: 1e-5, _BF16: 2e-2}
 
 
@@ -486,23 +493,48 @@ def agg_inputs(N, F, Dmax, dtype, device, seed=0):
     return feats.to(device=device, dtype=dtype), torch.as_tensor(nbrs).to(device)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _equal_or_raise(name: str, got: torch.Tensor, want: torch.Tensor,
+                    what: str) -> None:
+    if got.shape != want.shape or not torch.equal(_bits(got), _bits(want)):
+        err = (float((got.float() - want.float()).abs().max())
+               if got.shape == want.shape and got.numel() else "shape")
+        raise AssertionError(f"{name}: differs from {what} by up to {err}")
+
+
 def agg_case(case, device, seed=0) -> float:
-    """`gather_aggregate` against its plain version on ``device``; returns
-    the largest absolute difference, raises past `AGG_TOL`."""
+    """`gather_aggregate` against its plain version on ``device``: equal
+    byte for byte; returns 0.0."""
     name, N, F, Dmax, dtype, mean = case
     feats, nbrs = agg_inputs(N, F, Dmax, dtype, device, seed)
     got = gather_aggregate(feats, nbrs, mean=mean)
     want = gather_aggregate_ref(feats, nbrs, mean=mean)
-    return _close_or_raise(f"gather_aggregate {name}", got, want,
-                           AGG_TOL[dtype])
+    _equal_or_raise(f"gather_aggregate {name}", got, want,
+                    "the plain version's bytes")
+    return 0.0
 
 
 # the aggregate over CSR segments: (name, N, F, Dmax, dtype, mean[,
-# "star"]).  AGG_CASES' geometry and the GNN path's widths (16, 100, 128,
+# variant]).  AGG_CASES' geometry and the GNN path's widths (16, 100, 128,
 # 1 433), each padded table read as its rows' valid ids (`padded_to_csr`:
-# pads dropped, a third of the rows empty); and stars (a seventh field):
-# row 0 takes Dmax ids, every other row at most 3 or none, so one hub's
-# segment is ~10³ times the rest.
+# pads dropped, a third of the rows empty); stars ("star": row 0 takes
+# Dmax ids, every other row at most 3 or none, so one hub's segment is
+# ~10³ times the rest); and rows around and past `LONG_ROW` (T), built
+# directly as CSR (`agg_long_inputs`; Dmax is the longest row):
+#   * "rowsT": rows of T − 1, T and T + 1 ids among rows of 0–3;
+#   * "star100000": one row of 100 000 ids (more than ogb_products' hub);
+#   * "long400": 400 rows of 2T ids, more than the card has SMs;
+#   * "one-long": one row of 5T + 3 ids among 200 000 empty rows.
+# Each long geometry runs F 7, 100, 128 and 602, and f32 / bf16 × sum /
+# mean in turn.
+LONG_GEOMETRIES = (("rowsT", 4096, LONG_ROW + 1),
+                   ("star100000", 8192, 100_000),
+                   ("long400", 8192, 2 * LONG_ROW),
+                   ("one-long", 200_000, 5 * LONG_ROW + 3))
+_LONG_KINDS = ((_F32, False), (_BF16, True), (_BF16, False), (_F32, True))
 AGG_CSR_CASES = [
     *[(f"N{N}-F{F}-D{Dm}-{str(dt)[6:]}-{'mean' if mean else 'sum'}",
        N, F, Dm, dt, mean)
@@ -514,7 +546,18 @@ AGG_CSR_CASES = [
        8192, F, Dm, dt, mean, "star")
       for dt in (_F32, _BF16) for mean, F in ((True, 128), (False, 100))
       for Dm in (5000,)],
+    *[(f"{geo}-F{F}-{str(dt)[6:]}-{'mean' if mean else 'sum'}", N, F, Dm, dt,
+       mean, geo)
+      for g, (geo, N, Dm) in enumerate(LONG_GEOMETRIES)
+      for i, F in enumerate((7, 100, 128, 602))
+      for dt, mean in (_LONG_KINDS[(i + g) % 4],)],
 ]
+# a padded table of a long geometry is built, and held to, below this size
+AGG_PADDED_MAX_BYTES = 256 << 20
+# the CSR cases the transpose is held on (`agg_csr_t_case`): all but the
+# long geometries, which reach no path of the transpose that the others
+# miss
+AGG_CSR_T_CASES = [c for c in AGG_CSR_CASES if c[6:] in ((), ("star",))]
 
 
 def agg_star_inputs(N, F, Dmax, dtype, device, seed=0):
@@ -530,29 +573,75 @@ def agg_star_inputs(N, F, Dmax, dtype, device, seed=0):
             torch.as_tensor(nbrs).to(device))
 
 
+def agg_long_inputs(geo, N, F, dtype, device, seed=0):
+    """One of the long geometries (see `AGG_CSR_CASES`) built as CSR:
+    features (N, F) N(0, 1), indptr (N + 1,) and src (nnz,) int32 (ids in
+    [0, N)), and the padded table of the same rows (pad −1) where it takes
+    less than `AGG_PADDED_MAX_BYTES`, else None; from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    feats = torch.as_tensor(rng.normal(size=(N, F)), dtype=torch.float32)
+    if geo == "one-long":
+        deg = np.zeros(N, np.int64)
+        deg[N // 2 + 7] = 5 * LONG_ROW + 3
+    else:
+        deg = rng.integers(0, 4, N)
+        deg[rng.random(N) < 1 / 3] = 0
+        if geo == "rowsT":
+            deg[1:4] = (LONG_ROW - 1, LONG_ROW, LONG_ROW + 1)
+        elif geo == "star100000":
+            deg[0] = 100_000
+        elif geo == "long400":
+            deg[5:5 + 20 * 400:20] = 2 * LONG_ROW
+        else:
+            raise ValueError(f"unknown long geometry {geo!r}")
+    indptr = np.zeros(N + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    src = rng.integers(0, N, int(indptr[-1])).astype(np.int32)
+    nbrs = None
+    dmax = int(deg.max())
+    if N * dmax * 4 < AGG_PADDED_MAX_BYTES:
+        pos = np.arange(src.size) - np.repeat(indptr[:-1], deg)
+        table = np.full((N, dmax), -1, np.int32)
+        table[np.repeat(np.arange(N), deg), pos] = src
+        nbrs = torch.as_tensor(table).to(device)
+    return (feats.to(device=device, dtype=dtype),
+            torch.as_tensor(indptr.astype(np.int32)).to(device),
+            torch.as_tensor(src).to(device), nbrs)
+
+
 def _agg_csr_inputs(case, device, seed):
+    """(features, the padded table or None, (indptr, src)) of an
+    `AGG_CSR_CASES` entry."""
     name, N, F, Dmax, dtype, mean, *variant = case
+    if variant and variant[0] != "star":
+        feats, indptr, src, nbrs = agg_long_inputs(variant[0], N, F, dtype,
+                                                   device, seed)
+        return feats, nbrs, (indptr, src)
     make = agg_star_inputs if variant == ["star"] else agg_inputs
     feats, nbrs = make(N, F, Dmax, dtype, device, seed)
     return feats, nbrs, padded_to_csr(nbrs)
 
 
 def agg_csr_case(case, device, seed=0) -> float:
-    """`gather_aggregate_csr` on the CSR of the case's padded table: equal
-    byte for byte to `gather_aggregate` on the table (the one kernel, or
-    the one order of f32 adds), and against its plain version within
-    `AGG_TOL`; returns the largest absolute difference."""
+    """`gather_aggregate_csr` on the case's CSR: equal byte for byte to its
+    plain version and, where the case has one, to `gather_aggregate` on the
+    padded table of the same rows (the one order of f32 adds); a long
+    geometry launched twice gives the same bytes.  Returns 0.0."""
     name, dtype, mean = case[0], case[4], case[5]
     feats, nbrs, (indptr, src) = _agg_csr_inputs(case, device, seed)
     got = gather_aggregate_csr(feats, indptr, src, mean=mean)
-    padded = gather_aggregate(feats, nbrs, mean=mean)
-    if not torch.equal(got, padded):
-        err = float((got.float() - padded.float()).abs().max())
-        raise AssertionError(f"gather_aggregate_csr {name}: differs from the "
-                             f"padded layout's bytes by up to {err}")
-    want = gather_aggregate_csr_ref(feats, indptr, src, mean=mean)
-    return _close_or_raise(f"gather_aggregate_csr {name}", got, want,
-                           AGG_TOL[dtype])
+    name = f"gather_aggregate_csr {name}"
+    if nbrs is not None:
+        _equal_or_raise(name, got, gather_aggregate(feats, nbrs, mean=mean),
+                        "the padded layout's bytes")
+    if len(case) > 6 and case[6] != "star":
+        _equal_or_raise(name, gather_aggregate_csr(feats, indptr, src,
+                                                   mean=mean), got,
+                        "its first launch")
+    _equal_or_raise(name, got, gather_aggregate_csr_ref(feats, indptr, src,
+                                                        mean=mean),
+                    "the plain version's bytes")
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -791,7 +880,7 @@ def agg_csr_t_case(case, device, seed=0) -> float:
     """`ops.GatherAggregateCSR`'s backward (the transpose kernel over
     `ops.csr_transpose` of the in-CSR) against autograd of
     `gather_aggregate_csr_ref` on f32 copies, within `AGG_T_TOL`; a second
-    backward identical byte for byte.  ``case``: an `AGG_CSR_CASES` entry.
+    backward identical byte for byte.  ``case``: an `AGG_CSR_T_CASES` entry.
     Returns the largest absolute difference."""
     from ..kernels.gather_aggregate.ops import GatherAggregateCSR
 

@@ -3,8 +3,9 @@
 The reference runs once for the test session, in subprocesses with four
 forced host devices and meshes over the first 1, 2 and 4 of them
 (``mining_mesh(devices=jax.devices()[:m])``), one a mesh size.  The port runs once per world
-size 1, 2 and 4: one ``torch.multiprocessing.spawn`` of gloo ranks each,
-joined through a ``file://`` store in the test's temporary directory (no
+size 1, 2 and 4: one ``torch.multiprocessing.start_processes`` of gloo
+ranks each (forked from a server that imported the port once), joined
+through a ``file://`` store in the test's temporary directory (no
 TCP port to clash between test workers).  Both compute, on the geometry of
 the reference's distributed tests (``rmat_graph(200, 1200)``, cap 2 048,
 root block 32):
@@ -32,6 +33,7 @@ import shutil
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import pytest
@@ -110,6 +112,11 @@ _REFERENCE = textwrap.dedent("""
     json.dump(out, open(path, "w"))
 """)
 REFERENCE_PARTS = ("1", "2", "4", "mine")   # one subprocess each
+FORKSERVER_PRELOAD = [
+    "torch", "torch.distributed", "repro_torch.core",
+    "repro_torch.core.distributed", "repro_torch.data.synthetic",
+    "repro_torch.interop", "repro_torch.runtime", "repro_torch.train",
+    "test_torch_distributed"]
 
 
 def _mine_cfg():
@@ -182,6 +189,14 @@ def _session_graph():
     return rmat_graph(100, 600, n_labels=2, seed=3, undirected=True)
 
 
+def _wait_for(path: Path, timeout_s: float = 600.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.05)
+
+
 def _rank(rank: int, ws: int, tmp: str) -> None:
     """One gloo rank of a world of ``ws``: everything `_compute` does, the
     bit-31 sum, and the session cut (world size 2) or its resume."""
@@ -224,6 +239,7 @@ def _rank(rank: int, ws: int, tmp: str) -> None:
     else:
         d = tmp / f"resumed{ws}"
         if rank == 0:
+            _wait_for(tmp / "ws2_rank0.json")     # world size 2's cut
             shutil.copytree(tmp / "killed", d)
         dist.barrier()
         res = MiningSession(_session_graph(), cfg, d, device="cpu",
@@ -243,24 +259,33 @@ def runs(tmp_path_factory):
 
 def _runs(tmp: Path):
     """The reference's subprocesses (one a mesh size, one for ``mine``) run
-    while the ranks do; world size 2 cuts the session that 1 and 4 resume,
-    so those two spawn together after it."""
+    while the ranks do.  World size 2 cuts the session that 1 and 4
+    resume: all three start together, and 1 and 4 wait for the cut only
+    before they resume.  The ranks fork from a server that has imported
+    the port once (``forkserver``), not from fresh interpreters."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    mp.set_forkserver_preload(FORKSERVER_PRELOAD)
     logs = [open(tmp / f"ref_{part}.err", "w") for part in REFERENCE_PARTS]
     refs = [subprocess.Popen(
         [sys.executable, "-c", _REFERENCE, part, str(tmp / f"ref_{part}.json")],
         env=env, cwd=REPO, stdout=subprocess.DEVNULL, stderr=log)
         for part, log in zip(REFERENCE_PARTS, logs)]
+    ctxs = []
     try:
-        mp.spawn(_rank, args=(2, str(tmp)), nprocs=2, join=True)
-        later = [mp.spawn(_rank, args=(ws, str(tmp)), nprocs=ws, join=False)
-                 for ws in (1, 4)]
-        for ctx in later:
+        for ws in (2, 1, 4):
+            ctxs.append(mp.start_processes(
+                _rank, args=(ws, str(tmp)), nprocs=ws, join=False,
+                start_method="forkserver"))
+        for ctx in ctxs:
             while not ctx.join():
                 pass
         for ref in refs:
             ref.wait(timeout=600)
     finally:
+        for ctx in ctxs:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
         for ref, log in zip(refs, logs):
             ref.kill()
             log.close()

@@ -64,6 +64,7 @@ from repro_torch.kernels.gather_aggregate.ops import (
     csr_transpose, gather_aggregate, gather_aggregate_csr, in_csr,
     in_neighbor_table, out_neighbor_csr, pad_adjacency, padded_to_csr,
 )
+from repro_torch.kernels.gather_aggregate.kernel import LONG_ROW
 from repro_torch.kernels.gather_aggregate.ref import gather_aggregate_t_ref
 from repro_torch.models.gnn import common as t_common
 from repro_torch.models.gnn.graphsage import SAGEConfig, sage_apply, sage_loss
@@ -375,6 +376,15 @@ CSR_CPU_CASES = [c for c in AGG_CSR_CASES if len(c) == 6] + [
 def test_csr_plain_equals_padded_plain(case):
     # random tables read as CSR (pads dropped, a third of the rows empty)
     # and stars (one row of 600 ids, the others 0–3): equal bytes
+    assert agg_csr_case(case, "cpu") == 0.0
+
+
+def test_csr_plain_rows_around_long_row_equal_padded_plain():
+    # rows of LONG_ROW − 1, LONG_ROW and LONG_ROW + 1 ids among short ones
+    # (the card's short and long paths), read as CSR and as the padded
+    # table: equal bytes
+    case = ("rowsT-F8-bfloat16-mean", 512, 8, LONG_ROW + 1, torch.bfloat16,
+            True, "rowsT")
     assert agg_csr_case(case, "cpu") == 0.0
 
 

@@ -35,13 +35,15 @@ from repro_torch.models.transformer import transformer_apply, transformer_init
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels.embedding_bag.kernel import embedding_bag_tbh
 from repro_torch.kernels.gather_aggregate.kernel import (
-    gather_aggregate_csr_nf, gather_aggregate_nf,
+    LONG_ROW, gather_aggregate_csr_nf, gather_aggregate_nf,
 )
 from repro_torch.models.gnn.graphsage import sage_apply
 from repro_torch.testing.parity import (
-    ADAMW_CASES, AGG_CASES, AGG_CSR_CASES, AGG_T_CASES, BAG_BWD_CASES,
+    ADAMW_CASES, AGG_CASES, AGG_CSR_CASES, AGG_CSR_T_CASES, AGG_T_CASES,
+    BAG_BWD_CASES,
     BAG_CASES, FLASH_BWD_CASES, FLASH_CASES, MIS_EDGE_CASES, adamw_case,
-    agg_case, agg_csr_case, agg_csr_t_case, agg_t_case, bag_bwd_case,
+    agg_case, agg_csr_case, agg_csr_t_case, agg_long_inputs, agg_t_case,
+    bag_bwd_case,
     bag_case, flash_bwd_case, flash_case, flash_inputs, frontier_case,
     mis_case, mis_edge_case, patterns_by_k, random_graph,
 )
@@ -564,7 +566,8 @@ def test_embedding_bag_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("case", AGG_CASES, ids=[c[0] for c in AGG_CASES])
 def test_gather_aggregate_matches_plain(cuda, case):
-    # f32 / bf16, sum / mean, Dmax 1, 15, 40, F 7, 8, 128, 602, ragged N
+    # f32 / bf16, sum / mean, Dmax 1, 15, 40, F 7, 8, 128, 602, ragged N:
+    # the plain version's bytes
     agg_case(case, cuda)
 
 
@@ -572,9 +575,35 @@ def test_gather_aggregate_matches_plain(cuda, case):
                          ids=[c[0] for c in AGG_CSR_CASES])
 def test_gather_aggregate_csr_matches_plain(cuda, case):
     # the padded cases read as CSR (pads dropped, empty rows), F 16, 100,
-    # 128, 1 433 and the rest, f32 / bf16, sum / mean, and stars of one
-    # 5 000-id row: the padded kernel's bytes, and its plain version
+    # 128, 1 433 and the rest, f32 / bf16, sum / mean, stars of one
+    # 5 000-id row, and rows around and past LONG_ROW (a star of 100 000
+    # ids, 400 long rows, one long row among empty ones): the plain
+    # version's bytes, the padded kernel's where the table is built, and a
+    # second launch's
     agg_csr_case(case, cuda)
+
+
+def test_gather_aggregate_long_row_threshold_is_the_sources(cuda):
+    from repro_torch.kernels.gather_aggregate.kernel import _lib
+    assert _lib().gather_aggregate_long_threshold() == LONG_ROW
+
+
+def test_gather_aggregate_csr_star_makes_no_host_sync(cuda):
+    # a call over a star's long row (the queue, the long blocks) never
+    # waits on the card: torch raises on any synchronising call in it
+    feats, indptr, src, _ = agg_long_inputs("star100000", 8192, 100,
+                                            torch.bfloat16, cuda)
+    gather_aggregate_csr_nf(feats, indptr, src, mean=True)   # build first
+    torch.cuda.synchronize()
+    before = gather_aggregate_csr_nf.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gather_aggregate_csr_nf(feats, indptr, src, mean=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert gather_aggregate_csr_nf.launches - before == 1
+    want = gather_aggregate_csr_nf(feats, indptr, src, mean=True)
+    assert torch.equal(got, want)
 
 
 def test_bag_and_aggregate_kernels_reject_bad_inputs(cuda):
@@ -665,8 +694,8 @@ def test_gather_aggregate_t_matches_plain(cuda, case):
     agg_t_case(case, cuda)              # raises past AGG_T_TOL
 
 
-@pytest.mark.parametrize("case", AGG_CSR_CASES,
-                         ids=[c[0] for c in AGG_CSR_CASES])
+@pytest.mark.parametrize("case", AGG_CSR_T_CASES,
+                         ids=[c[0] for c in AGG_CSR_T_CASES])
 def test_gather_aggregate_t_csr_matches_plain(cuda, case):
     agg_csr_t_case(case, cuda)          # raises past AGG_T_TOL
 

@@ -36,6 +36,7 @@ from repro_torch.core.batched import evaluate_level_batched as t_eval_level
 from repro_torch.core.graph import DeviceGraph as TDeviceGraph
 from repro_torch.data.synthetic import paper_dataset as t_dataset
 from repro_torch.launch import mine as t_cli
+from repro_torch.testing.shared import SharedParts
 
 METRICS = ("mis", "mis_luby", "mni", "frac")
 REPO = Path(__file__).resolve().parents[1]
@@ -72,29 +73,79 @@ def _result(res):
                 health=res.health.to_dict())
 
 
-@pytest.mark.parametrize("execution", ["batched", "sequential"])
-@pytest.mark.parametrize("metric", METRICS)
-def test_mine_equals_reference(metric, execution):
-    g = j_dataset("gnutella", scale=0.005)
-    jcfg, tcfg = _configs(g, metric, execution)
-    want = _result(j_mine(g, jcfg))
+EXECUTIONS = ("batched", "sequential")
+# plane-major: the metrics of one plane share most of the reference's
+# compiled programs, the two planes of a metric hardly any
+MINE_CASES = [(m, ex) for ex in EXECUTIONS for m in METRICS]
+METRIC_PAIRS = (METRICS[:2], METRICS[2:])
+
+
+def _mine_refs(execution, metrics):
+    """The reference's mine() for some metrics on one plane, in one
+    process: the second run reuses the first's compiled programs."""
+    def compute(_):
+        g = j_dataset("gnutella", scale=0.005)
+        return {("mine", m, execution): _result(j_mine(g, _configs(
+            g, m, execution)[0])) for m in metrics}
+    return [("mine", m, execution) for m in metrics], compute
+
+
+@pytest.fixture(scope="module")
+def mine_ref(tmp_path_factory):
+    """The reference runs of `test_mine_equals_reference`, each part (two
+    metrics on one plane: two neighbouring cases) once for the test
+    session (`SharedParts`)."""
+    return SharedParts(tmp_path_factory, "torch-mine-ref", {
+        f"{ex}-{'-'.join(ms)}": _mine_refs(ex, ms)
+        for ex in EXECUTIONS for ms in METRIC_PAIRS})
+
+
+@pytest.mark.parametrize("metric,execution", MINE_CASES,
+                         ids=[f"{m}-{ex}" for m, ex in MINE_CASES])
+def test_mine_equals_reference(mine_ref, metric, execution):
+    _, tcfg = _configs(j_dataset("gnutella", scale=0.005), metric, execution)
     got = _result(t_mine(t_dataset("gnutella", scale=0.005), tcfg,
                          device="cpu"))
+    want = mine_ref[("mine", metric, execution)]
     assert got == want
     assert want["searched"] > 0 and any(v["frequent"]
                                         for v in want["per_level"].values())
 
 
-@pytest.mark.parametrize("metric", ["mis", "frac"])
-def test_evaluate_level_batched_equals_reference(metric):
+EVAL_METRICS = ("mis", "frac")
+
+
+def _eval_level_inputs():
     g = j_dataset("gnutella", scale=0.005)
     k2 = j_initial(g)
     pats = k2 + j_generate(k2[:8])[:12]          # mixed k in one level
     taus = [2 + i % 5 for i in range(len(pats))]
     jm = dataclasses.replace(JMatchConfig.for_graph(g, cap=1024, root_block=8,
                                                     chunk=4), two_phase=False)
-    want, w_to, w_tel = j_eval_level(g, JDeviceGraph.from_host(g), pats, taus,
-                                     metric, jm, max_batch=8)
+    return g, pats, taus, jm
+
+
+def _eval_level_refs(_):
+    """The reference's evaluate_level_batched for both metrics in one
+    process: the second reuses most of the first's compiled programs."""
+    g, pats, taus, jm = _eval_level_inputs()
+    return {("eval", m): j_eval_level(g, JDeviceGraph.from_host(g), pats,
+                                      taus, m, jm, max_batch=8)
+            for m in EVAL_METRICS}
+
+
+@pytest.fixture(scope="module")
+def eval_level_ref(tmp_path_factory):
+    """The reference runs of `test_evaluate_level_batched_equals_reference`,
+    once for the test session (`SharedParts`, one part)."""
+    return SharedParts(tmp_path_factory, "torch-eval-level-ref", {
+        "both": ([("eval", m) for m in EVAL_METRICS], _eval_level_refs)})
+
+
+@pytest.mark.parametrize("metric", EVAL_METRICS)
+def test_evaluate_level_batched_equals_reference(eval_level_ref, metric):
+    _, pats, taus, jm = _eval_level_inputs()
+    want, w_to, w_tel = eval_level_ref[("eval", metric)]
     tg = t_dataset("gnutella", scale=0.005)
     got, g_to, g_tel = t_eval_level(
         tg, TDeviceGraph.from_host(tg, "cpu"),

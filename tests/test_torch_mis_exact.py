@@ -36,6 +36,7 @@ from repro_torch.core.graph import DeviceGraph
 from repro_torch.core.matcher import match_block
 from repro_torch.core.plan import make_plan, stack_plans
 from repro_torch.data.synthetic import rmat_graph
+from repro_torch.testing.shared import shared_result
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -152,16 +153,40 @@ def _stats(res):
         peak=res.peak_device_bytes, timed_out=res.timed_out)
 
 
-@pytest.mark.parametrize("execution", ("batched", "sequential", "auto"))
-def test_mine_mis_exact_equals_reference(execution):
-    jg = j_rmat(24, 60, n_labels=4, seed=9, undirected=True)
-    g = rmat_graph(24, 60, n_labels=4, seed=9, undirected=True)
+EXECUTIONS = ("batched", "sequential", "auto")
+MINE_KW = dict(sigma=2, lam=1.0, metric="mis_exact", max_pattern_size=3)
+
+
+def _graphs():
+    return (j_rmat(24, 60, n_labels=4, seed=9, undirected=True),
+            rmat_graph(24, 60, n_labels=4, seed=9, undirected=True))
+
+
+def _mine_refs(_):
+    """The reference's mine() on every plane, sequential first: auto plans
+    the sequential plane here, and the three share most compiled
+    programs."""
+    jg, _ = _graphs()
     jm = JMatchConfig.for_graph(jg, cap=1024, root_block=32)
-    kw = dict(sigma=2, lam=1.0, metric="mis_exact", max_pattern_size=3,
-              execution=execution)
-    want = j_mine(jg, JMiningConfig(match=jm, **kw))
-    got = mine(g, MiningConfig(match=_t_match(jm), **kw), device="cpu")
-    assert _stats(got) == _stats(want)
+    return {ex: _stats(j_mine(jg, JMiningConfig(match=jm, execution=ex,
+                                                **MINE_KW)))
+            for ex in ("sequential", "auto", "batched")}
+
+
+@pytest.fixture
+def mine_ref(tmp_path_factory, _calibration):
+    """Once for the test session (`shared_result`), under the calibration
+    file that every test of this module reads."""
+    return shared_result(tmp_path_factory, "torch-mis-exact-mine", _mine_refs)
+
+
+@pytest.mark.parametrize("execution", EXECUTIONS)
+def test_mine_mis_exact_equals_reference(mine_ref, execution):
+    jg, g = _graphs()
+    jm = JMatchConfig.for_graph(jg, cap=1024, root_block=32)
+    got = mine(g, MiningConfig(match=_t_match(jm), execution=execution,
+                               **MINE_KW), device="cpu")
+    assert _stats(got) == mine_ref[execution]
     assert got.frequent and any(st.pattern.k == 3 for st in got.stats)
     if execution == "auto":
         assert all(st["plan"]["plane"] == "sequential"
